@@ -22,3 +22,15 @@ def resolve_device(device=None) -> torch.device:
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def model_device(model: torch.nn.Module, device=None) -> torch.device:
+    """``resolve_device(device)``, checked against where ``model`` lives."""
+    dev = resolve_device(device)
+    have = next(model.parameters()).device
+    if have != dev:
+        raise ValueError(
+            f"the model lives on {have}, the step was asked for {dev}; "
+            "build the model on the step's device"
+        )
+    return dev

@@ -1,10 +1,10 @@
 // int8 GEMMs of the stage-2 serving trunk, written for Hopper (sm_90a).
 //
-// Replaces the three Pallas TPU kernels of the q8dg serving path in
-// cellsegmentation_tpu/ops/q8_gemm.py:
-//   q8_matmul_launch     <- q8_matmul / _mm_kernel      (whole-tile Toeplitz 3x3)
-//   q8_matmul_px_launch  <- q8_matmul_px / _bmm_kernel  (per-pixel 1x1, strided projection)
-//   q8_conv3_tap_launch  <- q8_conv3_tap / _tap_kernel  (tap-accumulating 3x3)
+// Replaces the four Pallas TPU kernels of cellsegmentation_tpu/ops/q8_gemm.py:
+//   q8_matmul_launch        <- q8_matmul / _mm_kernel           (whole-tile Toeplitz 3x3)
+//   q8_matmul_px_launch     <- q8_matmul_px / _bmm_kernel       (per-pixel 1x1, strided projection)
+//   q8_conv3_tap_launch     <- q8_conv3_tap / _tap_kernel       (tap-accumulating 3x3)
+//   q8_conv3_rowtap_launch  <- q8_conv3_rowtap / _rowtap_kernel (row-Toeplitz 3x3)
 //
 // What bounds them on the H100: at the trunk's shapes (M = 225 tiles per
 // image x the image batch, K and N of 256..2048) each call does 2*M*N*K int8
@@ -13,7 +13,7 @@
 // big-K calls and below it for the 1x1 reduce/expand calls. Both rates need
 // tensor cores, so the core runs mma.sync.m16n8k32 (s8 x s8 -> s32).
 //
-// Design. One tiled GEMM core serves all three entry points; they differ
+// Design. One tiled GEMM core serves all four entry points; they differ
 // only in where a block's A columns and B rows come from, which the core
 // sees as a list of K segments (a_off, b_off), each kseg bytes long:
 //   matmul: one segment (0, 0), kseg = K;
@@ -23,6 +23,17 @@
 //           ((hi*w_in + wi)*C, t*C). The TPU's sequential tap grid axis is a
 //           loop inside the block here: Hopper blocks run in parallel and no
 //           accumulator carries across them.
+//   rowtap: one segment per in-range input row hi = stride*ho + dy - 1 of
+//           output row ho = blockIdx.z, (hi*w_in*C, dy*w_in*C), kseg = w_in*C:
+//           the TPU kernel's sequential dy grid axis (its int32 accumulator
+//           carried in VMEM scratch) becomes the same in-block loop. Each
+//           segment is a whole input row (w_in*C = 512..1024 bytes of K)
+//           against the dy-th row-Toeplitz weight plane; the per-column bias
+//           and scale arrive tiled over wo, so the epilogue is unchanged.
+//           At the trunk's shapes these calls sit below the int8 ridge as
+//           well as above it (the row-Toeplitz weight is w_in/3-redundant
+//           along the row, so K per output pixel is 1.3-2x the tap form's):
+//           operations bound the big-K calls, bytes the 1x1-map ones.
 // A block computes a 128x128 output tile with 8 warps (4 along M, 2 along
 // N, a 32x64 warp tile = 2x8 mma tiles, int32 accumulators in registers).
 // A and B tiles (128x64 bytes each) are staged in shared memory by cp.async,
@@ -56,7 +67,7 @@ constexpr int MT = WM / 16;       // m16 tiles per warp
 constexpr int NT = WN / 8;        // n8 tiles per warp
 constexpr int MAX_SEG = 9;
 
-enum { MODE_MM = 0, MODE_PX = 1, MODE_TAP = 2 };
+enum { MODE_MM = 0, MODE_PX = 1, MODE_TAP = 2, MODE_ROWTAP = 3 };
 enum { OUT_INT8 = 0, OUT_BF16 = 1, OUT_INT32 = 2 };
 
 struct Params {
@@ -70,7 +81,7 @@ struct Params {
   int lda, ldw, ldo;    // row strides in elements
   int kseg;             // bytes of K per segment (multiple of BK)
   int mode;
-  int h_in, w_in, w_out, stride, c_in;  // px (strided map) and tap geometry
+  int h_in, w_in, w_out, stride, c_in;  // px (strided map), tap and rowtap geometry
   int map;              // px: 1 when px_map is given
   float in_scale, res_scale, inv_out;
   int out_kind, relu;
@@ -147,7 +158,7 @@ __global__ void __launch_bounds__(THREADS) q8_gemm_kernel(const Params p) {
   const int t4 = lane & 3;  // mma threadID_in_group
   const int m0 = blockIdx.x * BM;
   const int n0 = blockIdx.y * BN;
-  const int pz = blockIdx.z;  // output pixel group (px, tap)
+  const int pz = blockIdx.z;  // output pixel group (px, tap) or output row (rowtap)
 
   if (tid == 0) {
     int ns = 0;
@@ -160,6 +171,16 @@ __global__ void __launch_bounds__(THREADS) q8_gemm_kernel(const Params p) {
       seg_a[0] = grp * p.c_in;
       seg_b[0] = 0;
       ns = 1;
+    } else if (p.mode == MODE_ROWTAP) {
+      const int k_row = p.w_in * p.c_in;
+      for (int dy = 0; dy < 3; ++dy) {
+        const int hi = p.stride * pz + dy - 1;
+        if (hi >= 0 && hi < p.h_in) {
+          seg_a[ns] = hi * k_row;
+          seg_b[ns] = dy * k_row;
+          ++ns;
+        }
+      }
     } else {
       const int ho = pz / p.w_out, wo = pz % p.w_out;
       for (int t = 0; t < 9; ++t) {
@@ -359,6 +380,27 @@ int q8_conv3_tap_launch(const void* x, const void* wt, const void* bias, const v
   p.w_out = w_out;
   p.stride = stride;
   return launch(p, h_out * w_out, stream);
+}
+
+// 3x3 pad-1 stride-s conv on the whole-tile layout as row-Toeplitz dots:
+// dy-major wt[N, 3*w_in*c_in] (N = w_out*c_out), out[M, h_out*N]
+int q8_conv3_rowtap_launch(const void* x, const void* wt, const void* bias, const void* wscale,
+                           void* out, int M, int N, int c_in, int h_in, int w_in, int stride,
+                           float in_scale, float inv_out, int out_kind, int relu, void* stream) {
+  const int h_out = (h_in - 1) / stride + 1;
+  const int k_row = w_in * c_in;
+  Params p = base(x, wt, bias, wscale, nullptr, out, M, N, in_scale, 1.0f, inv_out, out_kind,
+                  relu);
+  p.mode = MODE_ROWTAP;
+  p.lda = h_in * k_row;
+  p.ldw = 3 * k_row;
+  p.ldo = h_out * N;
+  p.kseg = k_row;
+  p.c_in = c_in;
+  p.h_in = h_in;
+  p.w_in = w_in;
+  p.stride = stride;
+  return launch(p, h_out, stream);
 }
 
 }  // extern "C"

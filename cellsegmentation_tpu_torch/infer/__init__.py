@@ -21,7 +21,7 @@ from cellsegmentation_tpu_torch.ops.tiles import tile_grid
 from cellsegmentation_tpu_torch.ops.topk import adaptive_topk_mask
 
 
-def _pipeline2(items, dispatch):
+def pipeline2(items, dispatch):
     """Yield (item, dispatch(item)) one batch BEHIND the dispatch order, so
     the consumer's blocking fetch of batch i overlaps batch i+1's device
     work. The generator flushes the last pending batch itself."""
@@ -60,7 +60,7 @@ def inference_tiles(
         return infer_step(source.images[base_idx[sel]], flip[sel])
 
     batches = BatchIterator(n, image_batch, shuffle=False)
-    for (sel, valid), d_probs in _pipeline2(batches, dispatch):
+    for (sel, valid), d_probs in pipeline2(batches, dispatch):
         out[sel[valid]] = d_probs.cpu().numpy()[valid]
     return out
 

@@ -1,13 +1,14 @@
 """int8 GEMMs with the fused dequant/bias/residual/ReLU/requant epilogue —
 the compute primitive of the stage-2 serving trunk (ops/q8_trunk.py).
 
-Three wrappers, each the counterpart of one Pallas TPU kernel of
+Four wrappers, each the counterpart of one Pallas TPU kernel of
 ``cellsegmentation_tpu/ops/q8_gemm.py``, and each backed by one entry point
 of ``csrc/q8_gemm.cu`` (one tiled mma.sync int8 core, see the source note):
 
-- ``q8_matmul``     <- ``q8_matmul`` (``_mm_kernel``)
-- ``q8_matmul_px``  <- ``q8_matmul_px`` (``_bmm_kernel``)
-- ``q8_conv3_tap``  <- ``q8_conv3_tap`` (``_tap_kernel``)
+- ``q8_matmul``        <- ``q8_matmul`` (``_mm_kernel``)
+- ``q8_matmul_px``     <- ``q8_matmul_px`` (``_bmm_kernel``)
+- ``q8_conv3_tap``     <- ``q8_conv3_tap`` (``_tap_kernel``)
+- ``q8_conv3_rowtap``  <- ``q8_conv3_rowtap`` (``_rowtap_kernel``)
 
 Weights are taken TRANSPOSED, ``wt [N, K]`` (K contiguous), which is what
 the kernel's B fragments read; the engine transposes the packed ``[K, N]``
@@ -146,6 +147,33 @@ def q8_conv3_tap_plain(x, wt, bias, w_scale, h_in=0, w_in=0, stride=1,
     return out.reshape(m, -1)
 
 
+def rowtap_rows(h_in: int, stride: int) -> list[list[tuple[int, int]]]:
+    """Per output row ho, the in-range (dy, input row hi) pairs of a 3x3
+    pad-1 stride-s conv, hi = stride*ho + dy - 1."""
+    h_out = (h_in - 1) // stride + 1
+    return [[(dy, stride * ho + dy - 1) for dy in range(3)
+             if 0 <= stride * ho + dy - 1 < h_in] for ho in range(h_out)]
+
+
+def q8_conv3_rowtap_plain(x, wt, bias, w_scale, h_in=0, w_in=0, stride=1,
+                          c_in=0, out_kind="int8", in_scale=1.0,
+                          out_scale=1.0, relu=True):
+    m = x.shape[0]
+    n = wt.shape[0]
+    k_row = w_in * c_in
+    xs = x.view(m, h_in, k_row)
+    ws = wt.view(n, 3, k_row)
+    accs = []
+    for rows in rowtap_rows(h_in, stride):  # the valid rows of one output row: one dot
+        a = xs[:, [hi for _, hi in rows]].reshape(m, -1)
+        b = ws[:, [dy for dy, _ in rows]].reshape(n, -1)
+        accs.append(int_matmul(a, b))
+    acc = torch.stack(accs, dim=1)  # [M, h_out, N]
+    out = epilogue_plain(acc, bias, w_scale, None, out_kind, in_scale, 1.0,
+                         out_scale, relu)
+    return out.reshape(m, -1)
+
+
 # ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
@@ -162,8 +190,9 @@ def _lib():
         p, p, p, p, p, p, i, i, i, i, i, i, i, i, f, f, f, i, i, p]
     lib.q8_conv3_tap_launch.argtypes = [
         p, p, p, p, p, i, i, i, i, i, i, f, f, i, i, p]
+    lib.q8_conv3_rowtap_launch.argtypes = lib.q8_conv3_tap_launch.argtypes
     for fn in (lib.q8_matmul_launch, lib.q8_matmul_px_launch,
-               lib.q8_conv3_tap_launch):
+               lib.q8_conv3_tap_launch, lib.q8_conv3_rowtap_launch):
         fn.restype = ctypes.c_int
     return lib
 
@@ -314,9 +343,47 @@ def q8_conv3_tap(x, wt, bias, w_scale, h_in=0, w_in=0, stride=1, c_in=0,
     return out
 
 
-KERNELS = (q8_matmul, q8_matmul_px, q8_conv3_tap)
+def q8_conv3_rowtap(x, wt, bias, w_scale, h_in=0, w_in=0, stride=1, c_in=0,
+                    out_kind="int8", in_scale=1.0, out_scale=1.0, relu=True):
+    """3x3 pad-1 stride-s conv on the whole-tile layout as one row-Toeplitz
+    dot per (output row, in-range dy): input row ``[M, w_in*C]`` against the
+    dy-th plane of the dy-major ``wt [w_out*C', 3*w_in*C]`` (column
+    ``dy*w_in*C + wi*C + ci``), summed in int32; the output row lands in
+    columns ``[ho*N, (ho+1)*N)``, N = w_out*C'."""
+    if not (h_in and w_in and c_in):
+        raise ValueError("q8_conv3_rowtap: h_in, w_in and c_in are required")
+    m = x.shape[0]
+    n = wt.shape[0]
+    k_row = w_in * c_in
+    if out_kind == "int32":
+        raise ValueError("q8_conv3_rowtap: out_kind must be int8 or bf16")
+    _check("q8_conv3_rowtap", x, wt, bias, w_scale, None, out_kind, k_row, n)
+    if x.shape[1] != h_in * k_row or wt.shape[1] != 3 * k_row:
+        raise ValueError("q8_conv3_rowtap: x must be [M, h_in*w_in*c_in] and "
+                         "wt [N, 3*w_in*c_in]")
+    if n % ((w_in - 1) // stride + 1):
+        raise ValueError("q8_conv3_rowtap: N must be w_out*c_out")
+    if x.device.type == "cpu":
+        return q8_conv3_rowtap_plain(x, wt, bias, w_scale, h_in, w_in, stride,
+                                     c_in, out_kind, in_scale, out_scale, relu)
+    kind, dtype = _OUT_KINDS[out_kind]
+    h_out = (h_in - 1) // stride + 1
+    out = torch.empty((m, h_out * n), dtype=dtype, device=x.device)
+    err = _lib().q8_conv3_rowtap_launch(
+        x.data_ptr(), wt.data_ptr(), bias.data_ptr(), w_scale.data_ptr(),
+        out.data_ptr(), m, n, c_in, h_in, w_in, stride, in_scale,
+        1.0 / out_scale, kind, int(relu),
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _raise_on("q8_conv3_rowtap", err)
+    q8_conv3_rowtap.launches += 1
+    return out
+
+
+KERNELS = (q8_matmul, q8_matmul_px, q8_conv3_tap, q8_conv3_rowtap)
 PLAIN = {q8_matmul: q8_matmul_plain, q8_matmul_px: q8_matmul_px_plain,
-         q8_conv3_tap: q8_conv3_tap_plain}
+         q8_conv3_tap: q8_conv3_tap_plain,
+         q8_conv3_rowtap: q8_conv3_rowtap_plain}
 for _fn in KERNELS:
     _fn.launches = 0
 

@@ -17,6 +17,15 @@ from cellsegmentation_tpu_torch.core.dtypes import DEFAULT_POLICY, Policy
 from cellsegmentation_tpu_torch.models.common import TileHead, init_weights
 
 MODES = ("image", "tile", "segment")
+
+# Parameter partitions, the top-level module names (the JAX package's
+# param-tree keys and the reference's state-dict prefixes)
+ENCODER_KEY = "encoder"
+TILE_KEY = "fc_tile"
+IMAGE_CLS_KEY = "fc_image_cls"
+IMAGE_REG_KEY = "fc_image_reg"
+SEG_KEY = "seg_decoder"
+PARTITIONS = (ENCODER_KEY, TILE_KEY, IMAGE_CLS_KEY, IMAGE_REG_KEY, SEG_KEY)
 _LATER = {
     "image": "the stage-1 slice (image heads)",
     "segment": "the stage-3 slice (seg decoder)",
@@ -43,6 +52,17 @@ class MILNet(nn.Module):
             )
         x4 = self.encoder(x)[0]
         return self.fc_tile(x4)
+
+    def set_trainable(self, partitions) -> None:
+        """``requires_grad`` on for the named partitions' parameters, off for
+        every other's. BatchNorm is untouched: the encoder runs on its
+        running statistics in every mode this slice has."""
+        missing = set(partitions) - {n for n, _ in self.named_children()}
+        if missing:
+            raise NotImplementedError(
+                f"partitions {sorted(missing)} are not ported yet")
+        for name, child in self.named_children():
+            child.requires_grad_(name in partitions)
 
 
 def init_milnet(model: MILNet, seed: int = 0) -> MILNet:

@@ -337,7 +337,8 @@ class DenseTileProbs:
     at every call, since stage 2 retrains the head between sweeps."""
 
     def __init__(self, model: MILNet, folded: FoldedTrunk, meta,
-                 scales: TrunkScales, gemm_span: int, first_stage: int):
+                 scales: TrunkScales, gemm_span: int, first_stage: int,
+                 w2_impl: str = "auto"):
         dev = next(model.parameters()).device
         self.model = model
         self.meta = meta
@@ -363,6 +364,7 @@ class DenseTileProbs:
         self.tree = (*stem, stages)
         host_params, self.metas = build_q8_backend(
             folded, scales, gemm_span, gemm_span, first_stage=first_stage,
+            w2_impl=w2_impl,
         )
         self.qparams = upload_q8_params(host_params, dev)
 
@@ -402,10 +404,12 @@ class DenseTileProbs:
 def make_dense_tile_probs(
     model: MILNet, tile_size: int, interval: int, hw: int,
     calib_tiles: np.ndarray, scales: Optional[TrunkScales] = None,
+    w2_impl: str = "auto",
 ) -> Optional[DenseTileProbs]:
     """Build the dense shared-stem sweep (q8dg); None when the arch or the
     grid does not qualify. ``scales`` replaces the calibration (a test feeds
-    the JAX package's TrunkScales through it).
+    the JAX package's TrunkScales through it); ``w2_impl`` picks the GEMM
+    trunk's 3x3 form (ops/q8_trunk.py ``W2_IMPLS``).
 
     The conv/GEMM split is the JAX engine's default: layer2 in conv-land,
     layers 3-4 (from stage ``GEMM_FIRST_STAGE``, block 0) as int8 GEMMs."""
@@ -419,4 +423,5 @@ def make_dense_tile_probs(
     span = tile_size // 4
     for _ in range(GEMM_FIRST_STAGE - 1):
         span = (span + 1) // 2
-    return DenseTileProbs(model, folded, meta, scales, span, GEMM_FIRST_STAGE)
+    return DenseTileProbs(model, folded, meta, scales, span, GEMM_FIRST_STAGE,
+                          w2_impl)

@@ -5,11 +5,20 @@ At the 32x32-tile geometry layers 3-4 run on tiny maps (4/2/1 px a side).
 Every activation is an int8 ``[N, px*C]`` row-major matrix (column
 ``(h*w_in + w)*C + c``); 1x1 convs are per-pixel GEMMs (``q8_matmul_px``),
 the strided projection reads a static pixel map, residual adds ride the
-expand's epilogue, and 3x3s are either the tap-accumulating conv
-(``q8_conv3_tap``) or one whole-tile Toeplitz GEMM (``q8_matmul``): for a
-conv on an [h, w, C] map the dense weight W'[(hi,wi,ci), (ho,wo,co)] =
-K[dy,dx,ci,co] makes the whole conv, zero padding included, one GEMM. The
-two 3x3 forms accumulate the same int32 products, so they are bit-identical.
+expand's epilogue, and 3x3s take one of three forms:
+
+- the tap-accumulating conv (``q8_conv3_tap``): 9 shifted [M, C] x [C, C']
+  dots per output pixel;
+- one whole-tile Toeplitz GEMM (``q8_matmul``): for a conv on an [h, w, C]
+  map the dense weight W'[(hi,wi,ci), (ho,wo,co)] = K[dy,dx,ci,co] makes the
+  whole conv, zero padding included, one GEMM;
+- the row-Toeplitz conv (``q8_conv3_rowtap``): per output row, one
+  [M, w*C] x [w*C, w'*C'] dot per in-range input row against the dy-th
+  plane of a weight whose (wi, wo) band holds K[dy, wi - stride*wo + 1].
+
+The three forms quantize the same kernel with the same per-channel scales
+and accumulate the same int32 products, so they are bit-identical: the
+choice (``w2_impl``) is a speed switch only.
 
 The host packing below is the JAX package's, verbatim (numpy), so the
 packed int8 weights are byte-identical to it. The kernels read each weight
@@ -25,18 +34,25 @@ import numpy as np
 import torch
 
 from cellsegmentation_tpu_torch.kernels.q8_gemm import (
+    q8_conv3_rowtap,
     q8_conv3_tap,
     q8_matmul,
     q8_matmul_px,
 )
 
-def _w2_impl(h: int, w: int) -> str:
-    """The 3x3 formulation of a block (the JAX package's ``W2_IMPL="auto"``):
-    the tap-accumulating conv when the block's input map has more than 9
-    pixels (the Toeplitz GEMM re-multiplies px_in/9 redundant K-columns per
-    output pixel), else the whole-tile Toeplitz GEMM. The forms are
-    bit-identical; the row-Toeplitz and grouped forms come with a later
-    slice of the port."""
+# the 3x3 formulations a trunk can be built with: two of the JAX package's
+# W2_IMPL values (its forced "tap"/"wholetile" forms have no caller here; its
+# grouped "gdot" form comes with the ResNeXt slice of the port)
+W2_IMPLS = ("auto", "rowtap")
+
+
+def _w2_impl(h: int, w: int, w2_impl: str) -> str:
+    """The 3x3 formulation of a block. ``"auto"``: the tap-accumulating conv
+    when the block's input map has more than 9 pixels (the Toeplitz GEMM
+    re-multiplies px_in/9 redundant K-columns per output pixel), else the
+    whole-tile Toeplitz GEMM; ``"rowtap"`` forces the row-Toeplitz form."""
+    if w2_impl == "rowtap":
+        return w2_impl
     return "tap" if h * w > 9 else "wholetile"
 
 
@@ -74,6 +90,27 @@ def _wholetile_weight(k2: np.ndarray, h: int, w: int, stride: int):
     return big, ho, wo
 
 
+def _rowtap_weight(k2: np.ndarray, w_in: int, stride: int):
+    """[3,3,C,C'] folded conv kernel -> dy-major row-Toeplitz GEMM weight.
+
+    Returns (W [3*w_in*C, w_out*C'] f32, w_out). Plane dy holds, at band
+    (wi, wo), K[dy, wi - stride*wo + 1]: one whole-input-row dot per
+    (output row, dy) covers every dx tap at once (q8_conv3_rowtap).
+    """
+    _, kw, c_in, c_out = k2.shape
+    w_out = (w_in - 1) // stride + 1
+    big = np.zeros((3 * w_in * c_in, w_out * c_out), dtype=np.float32)
+    for dy in range(3):
+        for wo in range(w_out):
+            for dx in range(kw):
+                wi = stride * wo + dx - 1
+                if 0 <= wi < w_in:
+                    r = (dy * w_in + wi) * c_in
+                    c = wo * c_out
+                    big[r : r + c_in, c : c + c_out] = k2[dy, dx]
+    return big, w_out
+
+
 @dataclasses.dataclass(frozen=True)
 class QBlockMeta:
     """Static per-block config."""
@@ -92,18 +129,22 @@ class QBlockMeta:
     s_res: float  # residual scale: s_in (identity) or the proj-out scale
     s_out: Optional[float]  # None -> final block, bf16 out
     has_proj: bool
-    w2_impl: str = "wholetile"  # "wholetile" | "tap"
+    w2_impl: str = "wholetile"  # "wholetile" | "tap" | "rowtap"
     groups: int = 1  # the grouped (ResNeXt) trunk comes with a later slice
 
 
 def build_q8_backend(folded, scales, h_in: int, w_in: int,
-                     first_stage: int = 1, first_block: int = 0):
+                     first_stage: int = 1, first_block: int = 0,
+                     w2_impl: str = "auto"):
     """(FoldedTrunk, deep TrunkScales, input spatial size of block
     (first_stage, first_block)) -> (host params [dict], [QBlockMeta]) for
     the blocks from (first_stage, first_block) to the end of the trunk.
 
     ``scales`` must be calibrated with deep=True (h1/h2 at every stage plus
-    proj and block_out)."""
+    proj and block_out). ``w2_impl`` (one of ``W2_IMPLS``) picks every
+    block's 3x3 form, as the JAX package's ``W2_IMPL`` does."""
+    if w2_impl not in W2_IMPLS:
+        raise ValueError(f"w2_impl must be one of {W2_IMPLS}, got {w2_impl!r}")
     params: List[dict] = []
     metas: List[QBlockMeta] = []
     h, w = h_in, w_in
@@ -122,14 +163,19 @@ def build_q8_backend(folded, scales, h_in: int, w_in: int,
 
             s1 = _per_channel_scale(w1[0, 0])
             s2c = _per_channel_scale(w2)  # per co
-            w2_impl = _w2_impl(h, w)
-            if w2_impl == "tap":
+            impl = _w2_impl(h, w, w2_impl)
+            if impl == "tap":
                 # tap-major [9*c_mid, c_mid] rows (dy*3+dx)*c_mid + ci —
                 # the row-major reshape of the HWIO kernel
                 ho = (h - 1) // blk_stride + 1
                 wo = (w - 1) // blk_stride + 1
                 w2q = _quant_w(w2.reshape(9 * c_mid, c_mid), s2c)
                 b2q, s2q = b2, s2c
+            elif impl == "rowtap":
+                big2, wo = _rowtap_weight(w2, w, blk_stride)
+                ho = (h - 1) // blk_stride + 1
+                w2q = _quant_w(big2, np.tile(s2c, wo))
+                b2q, s2q = np.tile(b2, wo), np.tile(s2c, wo)
             else:
                 big2, ho, wo = _wholetile_weight(w2, h, w, blk_stride)
                 w2q = _quant_w(big2, np.tile(s2c, ho * wo))
@@ -172,7 +218,7 @@ def build_q8_backend(folded, scales, h_in: int, w_in: int,
                     s_res=s_res,
                     s_out=None if is_final else float(scales.block_out[si][bi]),
                     has_proj=has_proj,
-                    w2_impl=w2_impl,
+                    w2_impl=impl,
                 )
             )
             params.append(p)
@@ -214,6 +260,12 @@ def q8_backend_forward(params: List[dict], metas: List[QBlockMeta],
             res = xq
         if m.w2_impl == "tap":
             h2 = q8_conv3_tap(
+                h1, p["w2"], p["b2"], p["s2"],
+                h_in=m.h_in, w_in=m.w_in, stride=m.stride, c_in=m.c_mid,
+                in_scale=m.s_h1, out_scale=m.s_h2,
+            )
+        elif m.w2_impl == "rowtap":
+            h2 = q8_conv3_rowtap(
                 h1, p["w2"], p["b2"], p["s2"],
                 h_in=m.h_in, w_in=m.w_in, stride=m.stride, c_in=m.c_mid,
                 in_scale=m.s_h1, out_scale=m.s_h2,

@@ -1,8 +1,11 @@
-"""Stage-2 tile sweep step: engine resolution and the exact per-tile graph.
+"""Stage-2 steps: the tile sweep (engine resolution, the exact per-tile
+graph) and the selected-tile train step.
 
 ``make_tile_infer_step`` returns a callable ``(images_u8, flip) -> probs
 [G, T]`` (softmax P(positive) per tile, reference tile order) on the
-model's device. Engine names are the JAX package's, so flags carry over:
+model's device; ``make_stack_tile_infer_step`` the same sweep over images
+gathered from a device-resident uint8 stack. Engine names are the JAX
+package's, so flags carry over:
 
 - ``"flax"``: the model's own graph on extracted tiles (exact per-tile);
 - ``"q8dg"``: the dense shared-stem int8-GEMM sweep (ops/infer_engine.py);
@@ -11,16 +14,23 @@ model's device. Engine names are the JAX package's, so flags carry over:
   exact per-tile graph.
 
 The per-tile q8/q8g engines and the q8d conv trunk come with later slices.
+
+``make_tile_train_step`` trains the tile head on selected tiles with the
+encoder frozen (BatchNorm on running statistics, no autograd graph through
+it), as the JAX package's stage-2 step does with ``freeze_encoder_stats``
+and its ``"tile"`` optimizer mask.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from cellsegmentation_tpu_torch.core.device import resolve_device
-from cellsegmentation_tpu_torch.data.batches import normalize_images
+from cellsegmentation_tpu_torch.core.device import model_device
+from cellsegmentation_tpu_torch.data.batches import flip_images, normalize_images
 from cellsegmentation_tpu_torch.models.milnet import MILNet
+from cellsegmentation_tpu_torch.ops.q8_trunk import W2_IMPLS
 from cellsegmentation_tpu_torch.ops.tiles import extract_tiles, tile_grid
 
 ENGINES = ("flax", "auto", "q8dg")
@@ -34,21 +44,20 @@ def _as_device(x, device, dtype=None) -> torch.Tensor:
 
 def make_tile_infer_step(
     model: MILNet, tile_size: int, coords, engine: str = "flax",
-    calib_images=None, device=None, scales=None,
+    calib_images=None, device=None, scales=None, w2_impl: str = "auto",
 ):
     """Tile sweep over whole uint8 images [G, H, W, 3] on ``device`` (the
     CUDA card unless ``device="cpu"``; the model must already live there).
 
     ``coords`` is the static [T, 2] grid. Dense engines need
     ``calib_images`` (uint8 full frames) for the int8 scale calibration, or
-    ``scales`` (a TrunkScales) to skip it. The step's ``resolved_engine``
-    names the engine that runs."""
-    dev = resolve_device(device)
-    if next(model.parameters()).device != dev:
-        raise ValueError(
-            f"the model lives on {next(model.parameters()).device}, the step "
-            f"was asked for {dev}; build the model on the step's device"
-        )
+    ``scales`` (a TrunkScales) to skip it; ``w2_impl`` picks the GEMM
+    trunk's 3x3 form (ops/q8_trunk.py ``W2_IMPLS``, a speed switch: the forms
+    are bit-identical). The step's ``resolved_engine`` names the engine that
+    runs."""
+    dev = model_device(model, device)
+    if w2_impl not in W2_IMPLS:
+        raise ValueError(f"w2_impl must be one of {W2_IMPLS}, got {w2_impl!r}")
     if engine in _LATER:
         raise NotImplementedError(
             f"engine={engine!r} is not ported yet; the per-tile q8/q8g engines "
@@ -59,7 +68,7 @@ def make_tile_infer_step(
     coords = np.asarray(coords)
 
     built, resolved = _try_dense_engine(
-        model, tile_size, coords, engine, calib_images, scales
+        model, tile_size, coords, engine, calib_images, scales, w2_impl
     )
     if built is not None:
         @torch.no_grad()
@@ -88,7 +97,8 @@ def _resolve_dense_engine(engine: str):
     return "q8dg" if engine in ("q8dg", "auto") else None
 
 
-def _try_dense_engine(model, tile_size, coords, engine, calib_images, scales):
+def _try_dense_engine(model, tile_size, coords, engine, calib_images, scales,
+                      w2_impl):
     """(built engine or None, resolved engine name or None)."""
     dense_try = _resolve_dense_engine(engine)
     if dense_try is None:
@@ -97,7 +107,8 @@ def _try_dense_engine(model, tile_size, coords, engine, calib_images, scales):
         if engine == "auto":
             return None, None
         raise ValueError("engine='q8dg' needs calib_images or scales")
-    built = _build_dense_engine(model, tile_size, coords, calib_images, scales)
+    built = _build_dense_engine(model, tile_size, coords, calib_images, scales,
+                                w2_impl)
     if built is None:
         if engine == "q8dg":
             raise ValueError("engine='q8dg' needs an ungrouped Bottleneck "
@@ -114,7 +125,8 @@ def _try_dense_engine(model, tile_size, coords, engine, calib_images, scales):
     return built, dense_try
 
 
-def _build_dense_engine(model, tile_size, coords, calib_images, scales):
+def _build_dense_engine(model, tile_size, coords, calib_images, scales,
+                        w2_impl):
     """The q8dg sweep, or None when the grid or the arch does not qualify.
     The image size comes from the calibration images; the coordinate table
     must be the canonical product grid of ``tile_grid``."""
@@ -136,7 +148,7 @@ def _build_dense_engine(model, tile_size, coords, calib_images, scales):
     calib = (None if calib_images is None
              else calib_tiles_from_images(calib_images, coords, tile_size))
     return make_dense_tile_probs(model, tile_size, interval, hw, calib,
-                                 scales=scales)
+                                 scales=scales, w2_impl=w2_impl)
 
 
 def _tile_infer_body(model, tile_size, images, flip, coords):
@@ -150,3 +162,89 @@ def _tile_infer_body(model, tile_size, images, flip, coords):
                          dtype=model.policy.compute_dtype)
     logits = model(x, mode="tile")
     return torch.softmax(logits.float(), dim=-1)[:, 1].reshape(g, t)
+
+
+def make_stack_tile_infer_step(
+    model: MILNet, tile_size: int, coords, engine: str = "flax",
+    calib_images=None, device=None, w2_impl: str = "auto",
+):
+    """The tile sweep over images gathered from a device-resident stack:
+    ``(images_stack u8 [N, H, W, 3] on the device, idx [G], flip [G]) ->
+    probs [G, T]``. The gather ``images_stack[idx]`` runs on the device, so
+    the images cross to it once per run, not once per sweep. Arguments as
+    ``make_tile_infer_step``; the underlying per-batch step (the same built
+    engine) is the result's ``infer_step``, for sweeps over images that are
+    not in the stack."""
+    infer_step = make_tile_infer_step(
+        model, tile_size, coords, engine=engine, calib_images=calib_images,
+        device=device, w2_impl=w2_impl,
+    )
+    dev = model_device(model, device)
+
+    @torch.no_grad()
+    def infer_stack(images_stack, idx, flip):
+        imgs = images_stack[_as_device(idx, dev, torch.long)]
+        return infer_step(imgs, flip)
+
+    infer_stack.resolved_engine = infer_step.resolved_engine
+    infer_stack.infer_step = infer_step
+    return infer_stack
+
+
+def _masked_mean(values: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    valid = valid.to(torch.float32)
+    return torch.sum(values * valid) / torch.clamp_min(torch.sum(valid), 1.0)
+
+
+def _gather_tiles(images_dev: torch.Tensor, img_idx, xs, ys,
+                 tile_size: int) -> torch.Tensor:
+    """``images_dev[i, x:x+ts, y:y+ts]`` for every (i, x, y), on the
+    stack's device: [B, ts, ts, 3] uint8."""
+    r = torch.arange(tile_size, device=images_dev.device)
+    rows = (xs[:, None] + r)[:, :, None]
+    cols = (ys[:, None] + r)[:, None, :]
+    return images_dev[img_idx[:, None, None], rows, cols]
+
+
+_BATCH_KEYS = ("img_idx", "xs", "ys", "flip", "label", "valid")
+
+
+def make_tile_train_step(model: MILNet, tile_size: int, device=None):
+    """Cross-entropy training of ``fc_tile`` on selected tiles gathered from
+    the device-resident uint8 stack.
+
+    ``step(state, images_dev, batch) -> (state, {"loss": ce})`` with batch
+    ``{img_idx, xs, ys, flip, label, valid}`` ([B] arrays, host or device;
+    ``valid`` masks the last batch's padding). The tiles are gathered and
+    flipped on the device, normalized in f32, run through the frozen encoder
+    (BatchNorm on running statistics, no autograd graph), and the
+    masked-mean f32 cross-entropy steps the state's optimizer, which holds
+    ``fc_tile`` only (train/state.py). The loss is returned as a device
+    scalar, so the caller decides when to wait for it. ``step.loss_fn(
+    images_dev, batch)`` is the differentiable loss alone."""
+    dev = model_device(model, device)
+
+    def loss_fn(images_dev, batch):
+        b = {k: _as_device(batch[k], dev) for k in _BATCH_KEYS}
+        idx = b["img_idx"].long()
+        tiles = _gather_tiles(images_dev, idx, b["xs"].long(), b["ys"].long(),
+                             tile_size)
+        # the flip applies to the sliced tile's content, not its parent image
+        tiles = flip_images(tiles, b["flip"])
+        x = normalize_images(tiles, torch.zeros_like(b["flip"]))
+        with torch.no_grad():
+            x4 = model.encoder(x)[0]
+        logits = model.fc_tile(x4)
+        logp = F.log_softmax(logits.float(), dim=-1)
+        ce_each = -logp.gather(1, b["label"].long()[:, None])[:, 0]
+        return _masked_mean(ce_each, b["valid"])
+
+    def step(state, images_dev, batch):
+        ce = loss_fn(images_dev, batch)
+        state.optimizer.zero_grad(set_to_none=True)
+        ce.backward()
+        state.apply_gradients()
+        return state, {"loss": ce.detach()}
+
+    step.loss_fn = loss_fn
+    return step

@@ -1,0 +1,255 @@
+"""Host-side epoch orchestration of the stage-2 MIL cycle.
+
+The steps (train/steps.py) do the math on the device; the host loop owns
+the data-dependent control flow: the per-epoch sweep and selection, the
+tile batches, validation and checkpointing. Single-process: the multi-host
+split of the sweep comes with the ``parallel/`` slice of the port.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+import warnings
+from typing import Optional
+
+import numpy as np
+import torch
+
+from cellsegmentation_tpu_torch import infer
+from cellsegmentation_tpu_torch.core.device import model_device
+from cellsegmentation_tpu_torch.data.batches import BatchIterator
+from cellsegmentation_tpu_torch.evaluate import evaluate_tile
+from cellsegmentation_tpu_torch.models.milnet import MILNet
+from cellsegmentation_tpu_torch.ops.infer_engine import pick_calib_images
+from cellsegmentation_tpu_torch.ops.tiles import tile_grid
+from cellsegmentation_tpu_torch.train.checkpoint import save_checkpoint
+from cellsegmentation_tpu_torch.train.schedules import make_schedule
+from cellsegmentation_tpu_torch.train.state import TrainState, create_train_state
+from cellsegmentation_tpu_torch.train.steps import (
+    make_stack_tile_infer_step,
+    make_tile_train_step,
+)
+from cellsegmentation_tpu_torch.utils.logging import RunLogger
+
+
+@dataclasses.dataclass
+class Stage2Result:
+    state: TrainState
+    last_metrics: Optional[tuple] = None  # (err, fpr, fnr)
+    # per-epoch selected tile sets ({'img_idx','xs','ys','flip','label'}),
+    # recorded with train_stage2(record_selection=True)
+    selections: Optional[list] = None
+    # per epoch: host seconds of each phase ("sweep", "select", "train",
+    # "val"; each ends in a device->host read), the tiles trained on
+    # ("train_tiles") and the mean tile loss ("loss")
+    epoch_stats: list = dataclasses.field(default_factory=list)
+
+
+class _MetricsPipe:
+    """Per-epoch metric means that fetch each step's device scalars one step
+    late: batch i+1 is queued on the device before batch i's loss is read,
+    so the blocking read never leaves the device idle."""
+
+    def __init__(self):
+        self.sums: dict = {}
+        self.n = 0
+        self._pending = None
+
+    def push(self, metrics: dict) -> None:
+        self._drain()
+        self._pending = metrics
+        self.n += 1
+
+    def _drain(self) -> None:
+        if self._pending is not None:
+            for k, v in self._pending.items():
+                self.sums[k] = self.sums.get(k, 0.0) + float(v)
+            self._pending = None
+
+    def means(self) -> dict:
+        self._drain()
+        return {k: v / max(self.n, 1) for k, v in self.sums.items()}
+
+
+def train_stage2(
+    model: MILNet,
+    train_source,
+    val_source,
+    *,
+    epochs: int = 30,
+    tile_batch_size: int = 40960,
+    image_batch: int = 128,
+    tile_size: int = 32,
+    interval: int = 20,
+    tiles_per_pos: int = 1,
+    topk_neg: int = 30,
+    pos_neg_ratio: Optional[float] = 0.5,
+    threshold: float = 0.95,
+    lr: float = 5e-5,
+    weight_decay: float = 1e-4,
+    scheduler: Optional[str] = None,
+    test_every: int = 1,
+    encoder_name: str = "resnet50",
+    output_dir: Optional[str] = None,
+    logger: Optional[RunLogger] = None,
+    seed: int = 42,
+    last_epoch: int = 0,
+    resume_opt_state: Optional[dict] = None,
+    infer_engine: str = "auto",
+    record_selection: bool = False,
+    w2_impl: str = "auto",
+    device=None,
+) -> Stage2Result:
+    """Stage-2 MIL tile-classifier training, the adaptive top-k cycle.
+
+    Per epoch: a dense tile sweep over every training sample → count-driven
+    top-k selection and ratio pruning → cross-entropy training of ``fc_tile``
+    on the selected tiles with the encoder frozen. Validation scores dense
+    validation probs against count-derived tile labels. The checkpoint is
+    written at the final epoch only.
+
+    The model carries the weights and is trained in place; it must live on
+    ``device`` (the CUDA card unless ``device="cpu"``). The arguments are
+    the JAX package's, without its ``variables`` (the model holds them) and
+    ``mesh``, plus ``w2_impl`` (the GEMM trunk's 3x3 form) and ``device``.
+    The sweep engine is built once (the encoder is frozen for the whole
+    cycle, so its folding and calibration stay valid; it reads ``fc_tile``
+    at every call), and the training images cross to the device once.
+    """
+    dev = model_device(model, device)
+    logger = logger or RunLogger(output_dir or "./output")
+    h, w = train_source.image_hw
+    coords = tile_grid(h, w, tile_size, interval)
+    calib = (pick_calib_images(train_source.images)
+             if infer_engine in ("q8dg", "auto") else None)
+    stack_infer_fn = make_stack_tile_infer_step(
+        model, tile_size, coords, engine=infer_engine, calib_images=calib,
+        device=dev, w2_impl=w2_impl,
+    )
+    infer_fn = stack_infer_fn.infer_step
+    step_fn = make_tile_train_step(model, tile_size, device=dev)
+    images_dev = torch.as_tensor(np.asarray(train_source.images)).to(dev)
+
+    # the schedule is sized from a nominal epoch length: the real per-epoch
+    # batch count varies with the selection
+    nominal_steps = max(
+        1, (len(train_source) * (topk_neg + 1)) // tile_batch_size
+    )
+    schedule = make_schedule(scheduler, lr, epochs, nominal_steps, t0=5)
+    state = create_train_state(model, "tile", schedule,
+                               use_sgd=scheduler is not None,
+                               weight_decay=weight_decay, device=dev)
+    if resume_opt_state is not None:
+        try:
+            state.optimizer.load_state_dict(resume_opt_state)
+        except ValueError as e:  # another optimizer or stage wrote it
+            warnings.warn(
+                "checkpoint optimizer state does not match this run's "
+                f"optimizer ({e}); continuing with fresh optimizer state",
+                stacklevel=2,
+            )
+
+    n_t = coords.shape[0]
+
+    def dense_probs() -> np.ndarray:
+        """[N, T] tile probs of every training sample, gathered from the
+        device-resident stack, two batches in flight."""
+        n = len(train_source)
+        flip, base_idx = train_source.flip_code, train_source.base_idx
+        out = np.zeros((n, n_t), dtype=np.float32)
+
+        def dispatch(sv):
+            sel, _ = sv
+            return stack_infer_fn(images_dev, base_idx[sel], flip[sel])
+
+        batches = BatchIterator(n, image_batch, shuffle=False)
+        for (sel, valid), probs in infer.pipeline2(batches, dispatch):
+            out[sel[valid]] = probs.cpu().numpy()[valid]
+        return out
+
+    last_metrics = None
+    selections = [] if record_selection else None
+    epoch_stats = []
+
+    def save(epoch):
+        save_checkpoint(output_dir, "tile", epoch, encoder_name,
+                        model.state_dict(), state.optimizer.state_dict(),
+                        step=state.step)
+
+    for epoch in range(1 + last_epoch, epochs + 1):
+        try:
+            # realign the step to the epoch boundary: the schedule position
+            # is the step, and the real batch count drifts from the nominal
+            state.step = (epoch - 1) * nominal_steps
+            t0 = time.perf_counter()
+            # 1) dense inference over every training tile
+            probs = dense_probs()
+            t1 = time.perf_counter()
+            # 2) adaptive top-k selection + ratio pruning
+            train_data = infer.sample_topk(
+                train_source, probs, tile_size, interval, tiles_per_pos,
+                topk_neg, pos_neg_ratio, seed=seed + epoch, device=dev,
+            )
+            t2 = time.perf_counter()
+            logger.info(
+                f"[stage2 epoch {epoch}/{epochs}] sampled "
+                f"pos={train_data['n_pos']} neg={train_data['n_neg']}"
+            )
+            if record_selection:
+                selections.append({k: np.asarray(train_data[k]) for k in
+                                   ("img_idx", "xs", "ys", "flip", "label")})
+            # 3) cross-entropy training over the selected tiles; a fresh
+            # iterator seeded by the epoch, so a resumed epoch replays the
+            # same batches
+            n_sel = len(train_data["label"])
+            it = BatchIterator(n_sel, min(tile_batch_size, max(n_sel, 1)),
+                               shuffle=True, seed=seed + epoch)
+            pipe = _MetricsPipe()
+            for sel, valid in it:
+                batch = {k: train_data[k][sel]
+                         for k in ("img_idx", "xs", "ys", "flip", "label")}
+                batch["valid"] = valid
+                state, metrics = step_fn(state, images_dev, batch)
+                pipe.push(metrics)
+            loss = pipe.means().get("loss", 0.0)  # waits for the last step
+            t3 = time.perf_counter()
+            logger.info(f"  tile loss: {loss:.4f}")
+            logger.csv_row("tile-training", ["epoch", "tile_loss"], [epoch, loss])
+            logger.scalar("tile/loss", loss, epoch)
+
+            if (val_source is not None and len(val_source) > 0
+                    and epoch % test_every == 0):
+                val_probs = infer.inference_tiles(
+                    val_source, infer_fn, tile_size, interval,
+                    image_batch=image_batch,
+                )
+                m = evaluate_tile(val_source.labels, val_probs,
+                                  tiles_per_pos, threshold)
+                last_metrics = m
+                logger.info(
+                    f"  tile error: {m[0]:.4f} | FPR: {m[1]:.4f} | FNR: {m[2]:.4f}"
+                )
+                logger.csv_row(
+                    "tile-validation",
+                    ["epoch", "tile_error", "tile_fpr", "tile_fnr"],
+                    [epoch, *m],
+                )
+                logger.scalars(
+                    {"tile/err": m[0], "tile/fpr": m[1], "tile/fnr": m[2]}, epoch
+                )
+            t4 = time.perf_counter()
+            epoch_stats.append({"sweep": t1 - t0, "select": t2 - t1,
+                            "train": t3 - t2, "val": t4 - t3,
+                            "train_tiles": n_sel, "loss": loss})
+
+            if output_dir and epoch >= epochs:
+                save(epoch)
+        except KeyboardInterrupt:
+            if output_dir:
+                save(epoch)
+            logger.info(f"interrupted at epoch {epoch}; checkpoint saved")
+            raise
+
+    return Stage2Result(state=state, last_metrics=last_metrics,
+                        selections=selections, epoch_stats=epoch_stats)

@@ -1,23 +1,35 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch/CUDA port (cellsegmentation_tpu_torch).
 
-Drives the port's stage-2 serving sweep on one CUDA card, at the full width
-of ResNet-50 MILNet on 299^2 images (32-px tiles, interval 20, 225 tiles per
+Drives the port's stage-2 paths on one CUDA card, at the full width of
+ResNet-50 MILNet on 299^2 images (32-px tiles, interval 20, 225 tiles per
 image), with seeded random weights and seeded synthetic LYSTO images:
 
 1. device: the card's name and power limit, the TF32 flags;
 2. build: csrc/q8_gemm.cu with nvcc, and the ptxas report;
 3. kernels: every int8 GEMM call of one sweep step, captured at its real
-   shape and data, run through its CUDA kernel and its plain PyTorch version
-   (int8/int32 exact, bf16 within 1 ulp), timed in a CUDA graph beside
-   ``torch._int_mm`` on the same GEMM and the card's bound for the work;
-4. the slice: ``make_tile_infer_step(engine="auto")`` must resolve to q8dg;
+   shape and data (the auto-form engine's, and the 9 row-Toeplitz 3x3s of
+   an engine built with ``w2_impl="rowtap"``), run through its CUDA kernel
+   and its plain PyTorch version (int8/int32 exact, bf16 within 1 ulp),
+   timed in a CUDA graph beside ``torch._int_mm`` on the same GEMM and the
+   card's bound for the work;
+4. slice: ``make_tile_infer_step(engine="auto")`` must resolve to q8dg;
    ``inference_tiles`` over flip-free and flipped image batches and
    ``sample_topk``, with launch counts of 1 tap, 8 q8_matmul and 20
    q8_matmul_px per image batch; a small batch on the card agrees with the
    same batch through the port on the CPU;
-5. one JSON line with every kernel's launches and times;
-6. last line: {"ok": true, "device": {...}}.
+5. rowtap: the GEMM trunk in the auto and row-Toeplitz forms gives
+   bit-identical features from one captured entry tensor; a sweep with the
+   rowtap engine launches 9 q8_conv3_rowtap and 20 q8_matmul_px per image
+   batch (no q8_matmul, no q8_conv3_tap) and gives the auto sweep's probs;
+6. train: ``train_stage2``, 2 epochs of the MIL cycle, once per 3x3 form:
+   the same selections and the same ``fc_tile``; the train step timed at
+   the CLI's 40,960-tile batch; one train step on the card against the
+   same step through the port on the CPU, and two planted faults (wrong
+   flips, a transposed gather) that this gate must reject;
+7. profile: device time by kernel over one sweep step;
+8. one JSON line with every kernel's launches and times;
+9. last line: {"ok": true, "device": {...}}.
 
 Run from the repository root: ``python3 chip_smoke.py`` (one card). Exits
 non-zero, printing no result, when a phase fails or no card is present.
@@ -26,10 +38,12 @@ non-zero, printing no result, when a phase fails or no card is present.
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 
 PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8 tensor-core rate, op/s
@@ -39,6 +53,7 @@ REPLACES = {
     "q8_matmul": "cellsegmentation_tpu/ops/q8_gemm.py:128",
     "q8_matmul_px": "cellsegmentation_tpu/ops/q8_gemm.py:542",
     "q8_conv3_tap": "cellsegmentation_tpu/ops/q8_gemm.py:259",
+    "q8_conv3_rowtap": "cellsegmentation_tpu/ops/q8_gemm.py:407",
 }
 # The random tile head's kernel is scaled by HEAD_SCALE (as the CPU test of
 # the full-width sweep does), so the log-odds of the tile probs stay near 0
@@ -63,6 +78,30 @@ Q8DG_EXACT_MEAN = 0.1
 MIN_RANK_CORR = 0.8
 # uncounted sweeps timed after the counted one; images/s is their median
 SWEEP_REPEATS = 4
+# One train step on the card against the same step through the port on the
+# CPU, same weights and tiles. The encoder runs bf16 convs on both (cuDNN
+# and oneDNN round in other places: with HEAD_SCALE the exact graph's
+# log-odds differ by mean ~0.001 between the devices, measured in [slice]).
+# The first 256 selected tiles read loss 1.99e-5 relative and fc_tile
+# gradient cosine 0.999999 card vs CPU, but a planted wrong flip read only
+# 4.77e-4 and 0.999997: most tiles are flat background and noise, and with
+# the head scaled the gradient is dominated by the tiles' common features.
+# So the check step takes the 256 selected tiles with the most pixel
+# variance. There (H100 run): card vs CPU loss 5.73e-7 relative, 1 - cos
+# 1.3e-6, gradient max gap over max magnitude 3.45e-3; the planted faults
+# (every tile flipped wrongly; x and y swapped in the gather, both planted
+# by this phase in every run, which fails unless the gate rejects them)
+# read loss 2.83e-3 / 3.81e-4, 1 - cos 2.5e-4 / 2.6e-4, gap 2.07e-2 /
+# 2.76e-2. Each limit sits between the two, with room on both sides: loss
+# 35x / 19x, 1 - cos 15x / 12x, gap 2.9x / 2.1x.
+TRAIN_LOSS_RTOL = 2e-5
+TRAIN_GRAD_MIN_COS = 0.99998
+TRAIN_GRAD_MAX_GAP = 1e-2
+# tiles per card-vs-CPU train step (the CPU runs the full-width encoder)
+TRAIN_CHECK_TILES = 256
+# the CLI's stage-2 tile batch, and the timed train steps at that width
+TILE_BATCH = 40960
+TRAIN_RATE_STEPS = 5
 
 
 class PhaseError(RuntimeError):
@@ -159,7 +198,7 @@ def _capture_calls(engine, images):
     from cellsegmentation_tpu_torch.ops import q8_trunk
 
     calls = []
-    names = ("q8_matmul", "q8_matmul_px", "q8_conv3_tap")
+    names = ("q8_matmul", "q8_matmul_px", "q8_conv3_tap", "q8_conv3_rowtap")
     orig = {n: getattr(q8_trunk, n) for n in names}
 
     def recorder(fn):
@@ -205,6 +244,30 @@ def _work(fn, args, kw):
         nbytes = m * px * c_in + n * c_in + side + m * px * n * out_b
         a = x.view(m, -1, c_in)[:, groups].reshape(m * px, c_in)
         b = wt.t().contiguous()
+    elif fn is tq.q8_conv3_rowtap:
+        # the work is the conv's: C*C' products per in-range tap of each
+        # output pixel (the row dots' zero bands are not work); the weight
+        # bytes are the nonzero (wi, wo) bands of the dy planes some output
+        # row reads. The library yardstick is an im2row GEMM,
+        # [M*h_out, 3*w_in*C] rows with zeros for the out-of-range input rows
+        h_in, w_in, stride, c = kw["h_in"], kw["w_in"], kw["stride"], kw["c_in"]
+        k_row = w_in * c
+        rows = tq.rowtap_rows(h_in, stride)
+        table, h_out, w_out = tq.tap_table(h_in, w_in, stride)
+        c_out = n // w_out
+        ops = 2 * m * c * c_out * sum(len(t) for t in table)
+        planes = len({dy for r in rows for dy, _ in r})
+        bands = sum(0 <= stride * wo + dx - 1 < w_in
+                    for wo in range(w_out) for dx in range(3))
+        nbytes = (x.numel() + planes * bands * c * c_out + side
+                  + m * h_out * n * out_b)
+        idx = torch.full((h_out, 3), h_in, dtype=torch.long)
+        for ho, r in enumerate(rows):
+            for dy, hi in r:
+                idx[ho, dy] = hi
+        xs = torch.cat([x.view(m, h_in, k_row), x.new_zeros((m, 1, k_row))], dim=1)
+        a = xs[:, idx.to(x.device)].reshape(m * h_out, 3 * k_row)
+        b = wt.t().contiguous()
     else:  # tap: the library yardstick is an im2col GEMM, [M*px_out, 9*C]
         # rows with zeros for the out-of-range taps the kernel skips
         h_in, w_in, stride, c = kw["h_in"], kw["w_in"], kw["stride"], kw["c_in"]
@@ -225,13 +288,12 @@ def _work(fn, args, kw):
     return ops, nbytes, (lambda: torch._int_mm(a, b)), lib_ops
 
 
-def phase_kernels(engine, images):
+def phase_kernels(calls):
     """Each kernel against its plain version at the main path's shapes."""
     import torch
 
     from cellsegmentation_tpu_torch.kernels import q8_gemm as tq
 
-    calls = _capture_calls(engine, images)
     torch.cuda.synchronize()
     stats = {fn: dict(calls=0, err=0.0, ms=0.0, wrapper_ms=0.0, plain_ms=0.0,
                       lib_ms=0.0, bound_ms=0.0, ops_ms=0.0, bytes_ms=0.0,
@@ -266,12 +328,13 @@ def phase_kernels(engine, images):
         s["ops_ms"] += t_ops
         s["bytes_ms"] += t_bytes
         shape = f"x{tuple(args[0].shape)} wt{tuple(args[1].shape)}"
-        print(f"[kernels] {fn.__name__:13s} {shape:28s} "
-              f"{ {k: v for k, v in kw.items() if k in ('px', 'px_map', 'stride', 'out_kind', 'relu')} } "
+        print(f"[kernels] {fn.__name__:15s} {shape:28s} "
+              f"{ {k: v for k, v in kw.items() if k in ('px', 'px_map', 'h_in', 'stride', 'out_kind', 'relu')} } "
               f"res={'residual' in kw and kw['residual'] is not None} max_err={err}")
     for fn, s in stats.items():
         check(s["calls"] > 0, f"{fn.__name__}: no call on the main path")
         print(f"[kernels] {fn.__name__}: {s['calls']} calls per image batch, "
+              f"{s['ops'] / 1e9:.3f} G int8 ops, "
               f"max_abs_err {s['err']}, kernel {s['ms']:.4f} ms (CUDA graph; "
               f"{s['wrapper_ms']:.4f} ms eager through the wrapper), plain "
               f"{s['plain_ms']:.4f} ms, torch._int_mm {s['lib_ms']:.4f} ms "
@@ -299,27 +362,14 @@ def phase_slice(args, card, model, step, src):
     from cellsegmentation_tpu_torch.train.steps import make_tile_infer_step
 
     n_batches = math.ceil(len(src) / args.image_batch)
-    # first use of each flip code's graph (lazy module loading, allocator
-    # growth) happens here, outside the counted and timed sweep
-    for code in range(4):
-        step(src.images[: args.image_batch],
-             np.full(args.image_batch, code, np.int32))
-    torch.cuda.synchronize()
-
-    def sweep():
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = infer.inference_tiles(src, step, args.tile, args.interval,
-                                    image_batch=args.image_batch)
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t0
-
+    _warm_flips(step, src, args.image_batch)
     tq.reset_launch_counts()
-    probs, secs = sweep()
+    probs, secs = _sweep(src, step, args)
     launches = {fn.__name__: fn.launches for fn in tq.KERNELS}
-    passes = [secs] + [sweep()[1] for _ in range(SWEEP_REPEATS)]
+    passes = [secs] + [_sweep(src, step, args)[1] for _ in range(SWEEP_REPEATS)]
     print(f"[slice] launches over {n_batches} image batches: {launches}")
-    want = {"q8_matmul": 8, "q8_matmul_px": 20, "q8_conv3_tap": 1}
+    want = {"q8_matmul": 8, "q8_matmul_px": 20, "q8_conv3_tap": 1,
+            "q8_conv3_rowtap": 0}
     for name, per in want.items():
         check(launches[name] == per * n_batches,
               f"{name}: {launches[name]} launches, want {per} x {n_batches}")
@@ -384,7 +434,251 @@ def phase_slice(args, card, model, step, src):
     check(e_g.mean() <= Q8DG_EXACT_MEAN and e_g.mean() <= e_c.mean() + CARD_CPU_MEAN,
           f"q8dg sits {e_g.mean():.5f} from the exact graph on the card "
           f"(CPU: {e_c.mean():.5f})")
+    return launches, probs, ips
+
+
+def _warm_flips(step, src, image_batch):
+    """First use of each flip code's graph (lazy module loading, allocator
+    growth), outside any counted or timed sweep."""
+    import numpy as np
+    import torch
+
+    for code in range(4):
+        step(src.images[:image_batch], np.full(image_batch, code, np.int32))
+    torch.cuda.synchronize()
+
+
+def _sweep(src, step, args):
+    import torch
+
+    from cellsegmentation_tpu_torch import infer
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = infer.inference_tiles(src, step, args.tile, args.interval,
+                                image_batch=args.image_batch)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_rowtap(args, card, step, step_row, src, entry, probs_auto, auto_ips):
+    """The row-Toeplitz 3x3 form: the GEMM-land seam, then the sweep."""
+    import numpy as np
+    import torch
+
+    from cellsegmentation_tpu_torch.kernels import q8_gemm as tq
+    from cellsegmentation_tpu_torch.ops.q8_trunk import q8_backend_forward
+
+    forms = [m.w2_impl for m in step_row.engine.metas]
+    check(forms == ["rowtap"] * 9, f"rowtap engine forms {forms}")
+    with torch.no_grad():
+        f_auto = q8_backend_forward(step.engine.qparams, step.engine.metas, entry)
+        f_row = q8_backend_forward(step_row.engine.qparams, step_row.engine.metas,
+                                   entry)
+    torch.cuda.synchronize()
+    d = float((f_auto.float() - f_row.float()).abs().max())
+    print(f"[rowtap] GEMM-land seam: entry {tuple(entry.shape)} int8 -> bf16 "
+          f"features {tuple(f_row.shape)}, auto vs rowtap forms max |diff| {d}")
+    check(torch.equal(f_auto, f_row), "rowtap and auto trunk features differ")
+
+    n_batches = math.ceil(len(src) / args.image_batch)
+    _warm_flips(step_row, src, args.image_batch)
+    tq.reset_launch_counts()
+    probs, _ = _sweep(src, step_row, args)
+    launches = {fn.__name__: fn.launches for fn in tq.KERNELS}
+    print(f"[rowtap] launches over {n_batches} image batches: {launches}")
+    want = {"q8_matmul": 0, "q8_matmul_px": 20, "q8_conv3_tap": 0,
+            "q8_conv3_rowtap": 9}
+    for name, per in want.items():
+        check(launches[name] == per * n_batches,
+              f"{name}: {launches[name]} launches, want {per} x {n_batches}")
+    # the two forms' sweeps in turns (auto, rowtap, rowtap, auto, ...), so
+    # the host clock's drift falls on both alike
+    passes = {"auto": [], "rowtap": []}
+    for i in range(SWEEP_REPEATS):
+        order = ("auto", "rowtap") if i % 2 == 0 else ("rowtap", "auto")
+        for form in order:
+            passes[form].append(
+                _sweep(src, step if form == "auto" else step_row, args)[1])
+    ips = {f: len(src) / float(np.median(p)) for f, p in passes.items()}
+    dp = float(np.abs(probs - probs_auto).max())
+    rounded = {f: [round(x, 4) for x in p] for f, p in passes.items()}
+    print(f"[rowtap] sweeps in turns, s: {rounded}; median images/s: rowtap "
+          f"{ips['rowtap']:.1f}, auto {ips['auto']:.1f} "
+          f"({ips['rowtap'] / ips['auto']:.3f}x; the [slice] sweep read "
+          f"{auto_ips:.1f}) on {card}; probs vs the auto sweep max |diff| {dp}")
+    check(np.array_equal(probs, probs_auto), f"rowtap sweep probs differ by {dp}")
     return launches
+
+
+def _train_step_on(model, src, batch, dev):
+    """(loss, fc_tile weight gradient) of one tile train step's loss."""
+    import torch
+
+    from cellsegmentation_tpu_torch.train.steps import make_tile_train_step
+
+    images = torch.as_tensor(src.images).to(dev)
+    step = make_tile_train_step(model, 32, device=dev)
+    model.set_trainable(("fc_tile",))
+    model.zero_grad(set_to_none=True)
+    loss = step.loss_fn(images, batch)
+    loss.backward()
+    grad = model.fc_tile[1].weight.grad.detach().double().cpu().flatten()
+    return float(loss.detach()), grad
+
+
+def _train_gap(got, want):
+    """(loss rel, gradient cosine, gradient max gap / max magnitude) of a
+    (loss, grad) reading against the reference one."""
+    (loss_g, grad_g), (loss_c, grad_c) = got, want
+    rel = abs(loss_g - loss_c) / abs(loss_c)
+    cos = float(grad_g @ grad_c / (grad_g.norm() * grad_c.norm()))
+    gap = float((grad_g - grad_c).abs().max() / grad_c.abs().max())
+    ok = (rel <= TRAIN_LOSS_RTOL and cos >= TRAIN_GRAD_MIN_COS
+          and gap <= TRAIN_GRAD_MAX_GAP)
+    return rel, cos, gap, ok
+
+
+def _train_rate(model, src, sel, args):
+    """Host seconds of TRAIN_RATE_STEPS train steps (after one untimed) at
+    the CLI's tile batch, the epoch's selection repeated to fill it; each
+    step as train_stage2 runs it (host batch in, optimizer update), ended by
+    reading its loss."""
+    import numpy as np
+    import torch
+
+    from cellsegmentation_tpu_torch.train.schedules import make_schedule
+    from cellsegmentation_tpu_torch.train.state import create_train_state
+    from cellsegmentation_tpu_torch.train.steps import make_tile_train_step
+
+    images = torch.as_tensor(src.images).cuda()
+    idx = np.resize(np.arange(len(sel["label"])), TILE_BATCH)
+    batch = {k: sel[k][idx] for k in ("img_idx", "xs", "ys", "flip", "label")}
+    batch["valid"] = np.ones(TILE_BATCH, bool)
+    state = create_train_state(model, "tile", make_schedule(None, 5e-5, 1, 1),
+                               device="cuda")
+    step = make_tile_train_step(model, args.tile, device="cuda")
+    secs = []
+    for _ in range(TRAIN_RATE_STEPS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, images, batch)
+        check(math.isfinite(float(metrics["loss"])), "non-finite train loss")
+        secs.append(time.perf_counter() - t0)
+    return secs[1:]
+
+
+def phase_train(args, card, base, src):
+    """train_stage2 on the full-width model, once per 3x3 form, counted;
+    then one train step on the card against the CPU."""
+    import numpy as np
+    import torch
+
+    from cellsegmentation_tpu_torch.data import LystoDataSource, make_synthetic_arrays
+    from cellsegmentation_tpu_torch.kernels import q8_gemm as tq
+    from cellsegmentation_tpu_torch.models import build_model
+    from cellsegmentation_tpu_torch.train.trainers import train_stage2
+    from cellsegmentation_tpu_torch.utils.logging import RunLogger
+
+    arrays = make_synthetic_arrays(args.val_images, args.hw, 30, seed=args.seed + 1)
+    val = LystoDataSource.from_arrays(arrays["images"], arrays["organs"],
+                                      arrays["counts"], train=False, kfold=None)
+    n_batches = args.epochs * (math.ceil(len(src) / args.image_batch)
+                               + math.ceil(len(val) / args.image_batch))
+    want = {"auto": {"q8_matmul": 8, "q8_matmul_px": 20, "q8_conv3_tap": 1,
+                     "q8_conv3_rowtap": 0},
+            "rowtap": {"q8_matmul": 0, "q8_matmul_px": 20, "q8_conv3_tap": 0,
+                       "q8_conv3_rowtap": 9}}
+    runs = {}
+    with tempfile.TemporaryDirectory() as logdir:
+        for impl in ("auto", "rowtap"):
+            model = copy.deepcopy(base)
+            tq.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = train_stage2(
+                model, src, val, epochs=args.epochs, tile_batch_size=40960,
+                image_batch=args.image_batch, tile_size=args.tile,
+                interval=args.interval, tiles_per_pos=1, topk_neg=30,
+                pos_neg_ratio=0.5, lr=5e-5, seed=args.seed,
+                logger=RunLogger(logdir, run_name=impl, tensorboard=False),
+                infer_engine="auto", record_selection=True, w2_impl=impl,
+                device="cuda",
+            )
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {fn.__name__: fn.launches for fn in tq.KERNELS}
+            print(f"[train] w2_impl={impl}: {args.epochs} epochs in {wall:.1f} s "
+                  f"(engine build included); launches over {n_batches} image "
+                  f"batches: {launches}")
+            for name, per in want[impl].items():
+                check(launches[name] == per * n_batches,
+                      f"{impl}: {name} {launches[name]} launches, want {per} x "
+                      f"{n_batches}")
+            for e, st in enumerate(res.epoch_stats, 1):
+                check(math.isfinite(st["loss"]), f"{impl}: epoch {e} loss {st['loss']}")
+                print(f"[train] w2_impl={impl} epoch {e}: sweep {st['sweep']:.4f} s, "
+                      f"selection {st['select']:.4f} s, train steps "
+                      f"{st['train']:.4f} s ({st['train_tiles']} tiles, "
+                      f"{st['train_tiles'] / st['train']:.0f} tiles/s), validation "
+                      f"{st['val']:.4f} s; loss {st['loss']:.6f}; on {card}")
+            print(f"[train] w2_impl={impl}: validation (err, fpr, fnr) "
+                  f"{res.last_metrics}")
+            runs[impl] = (model, res)
+    (m_a, r_a), (m_r, r_r) = runs["auto"], runs["rowtap"]
+    for e, (sa, sr) in enumerate(zip(r_a.selections, r_r.selections), 1):
+        same = all(np.array_equal(sa[k], sr[k]) for k in sa)
+        print(f"[train] epoch {e}: {len(sa['label'])} tiles selected "
+              f"({int(sa['label'].sum())} pos); auto and rowtap selections "
+              f"identical: {same}")
+        check(same, f"epoch {e}: the two forms selected different tiles")
+    w_a, w_r = m_a.fc_tile[1].weight, m_r.fc_tile[1].weight
+    check(torch.equal(w_a, w_r) and torch.equal(m_a.fc_tile[1].bias, m_r.fc_tile[1].bias),
+          f"fc_tile differs between the forms by {float((w_a - w_r).detach().abs().max())}")
+    check(not torch.equal(w_a, base.fc_tile[1].weight), "fc_tile did not train")
+    print("[train] final fc_tile identical between the forms: True")
+
+    secs = _train_rate(copy.deepcopy(m_a), src, r_a.selections[-1], args)
+    med = float(np.median(secs))
+    print(f"[train] train step at the CLI's {TILE_BATCH}-tile batch (the "
+          f"epoch-2 selection repeated), {len(secs)} steps in "
+          f"{[round(x, 4) for x in secs]} s: median {med:.4f} s, "
+          f"{TILE_BATCH / med:.0f} tiles/s on {card}")
+
+    # one train step on the card against the CPU, from the initial weights,
+    # on the selected tiles with the most content: most tiles are flat
+    # background and noise, which a flip or a transposed gather leaves
+    # statistically alike
+    sel = r_a.selections[0]
+    t = args.tile
+    std = np.asarray([src.images[i, x:x + t, y:y + t].std() for i, x, y in
+                      zip(sel["img_idx"], sel["xs"], sel["ys"])])
+    pick = np.sort(np.argsort(-std, kind="stable")[:TRAIN_CHECK_TILES])
+    n = len(pick)
+    batch = {k: sel[k][pick] for k in ("img_idx", "xs", "ys", "flip", "label")}
+    batch["valid"] = np.ones(n, bool)
+    card_step = _train_step_on(copy.deepcopy(base), src, batch, "cuda")
+    cpu_model = quiet_head(build_model("resnet50", device="cpu", seed=args.seed))
+    cpu_step = _train_step_on(cpu_model, src, batch, "cpu")
+    rel, cos, gap, ok = _train_gap(card_step, cpu_step)
+    limits = (f"limits rel {TRAIN_LOSS_RTOL}, cos {TRAIN_GRAD_MIN_COS}, gap "
+              f"{TRAIN_GRAD_MAX_GAP}")
+    print(f"[train] one step of {n} tiles ({int(batch['label'].sum())} pos; "
+          f"pixel std {std[pick].min():.1f}..{std[pick].max():.1f}, all "
+          f"selected tiles from {std.min():.1f}), card vs CPU: loss {card_step[0]:.6f} "
+          f"vs {cpu_step[0]:.6f} (rel {rel:.2e}); fc_tile gradient cosine "
+          f"{cos:.7f}, max gap / max |grad| {gap:.2e} ({limits})")
+    check(ok, "train step card vs CPU outside the limits")
+    # the gate must reject a wrong step: planted faults on the card
+    planted = {"every tile's flip wrong": dict(batch, flip=batch["flip"] ^ 1),
+               "x and y swapped in the gather": dict(batch, xs=batch["ys"],
+                                                     ys=batch["xs"])}
+    for fault, bad in planted.items():
+        rel, cos, gap, ok = _train_gap(
+            _train_step_on(copy.deepcopy(base), src, bad, "cuda"), cpu_step)
+        print(f"[train] planted fault ({fault}) vs CPU: loss rel {rel:.2e}, "
+              f"gradient cosine {cos:.7f}, gap {gap:.2e}: "
+              f"{'passes' if ok else 'rejected'}")
+        check(not ok, f"the train-step gate passes a planted fault: {fault}")
 
 
 def _ranks(v):
@@ -394,7 +688,7 @@ def _ranks(v):
 
 
 def phase_profile(step, images):
-    """Device time by kernel over one sweep step (report only)."""
+    """Device time by kernel over one sweep step."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -416,6 +710,7 @@ def phase_profile(step, images):
         if t > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
             rows.append((t / 1e3, e.count, e.key))
     busy = sum(r[0] for r in rows)
+    check(busy > 0, "the profiler recorded no device time")
     print(f"[profile] one flip-free step of {len(images)} images: "
           f"{wall:.2f} ms unprofiled, device busy {busy:.2f} ms profiled "
           f"({100 * busy / wall:.1f}% of the step)")
@@ -435,6 +730,9 @@ def main(argv=None) -> int:
                     help="base images; the augmented source holds 4x as many")
     ap.add_argument("--image-batch", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--val-images", type=int, default=16,
+                    help="base images of the [train] phase's validation source")
+    ap.add_argument("--epochs", type=int, default=2, help="[train] epochs")
     args = ap.parse_args(argv)
     args.hw, args.tile, args.interval = 299, 32, 20
 
@@ -464,6 +762,7 @@ def main(argv=None) -> int:
             augment=True,
         )
         model = quiet_head(build_model("resnet50", device="cuda", seed=args.seed))
+        base = copy.deepcopy(model)  # the [train] phase's initial weights
         t0 = time.perf_counter()
         step = make_tile_infer_step(
             model, args.tile, _coords(args), engine="auto",
@@ -473,13 +772,31 @@ def main(argv=None) -> int:
               f"engine auto resolved to {step.resolved_engine}, want q8dg")
         print(f"[setup] engine build (fold, calibrate, pack) "
               f"{time.perf_counter() - t0:.1f} s; {len(src)} samples")
+        step_row = make_tile_infer_step(
+            model, args.tile, _coords(args), engine="auto", device="cuda",
+            scales=step.engine.scales, w2_impl="rowtap",
+        )
 
         phase = "kernels"
         batch = torch.as_tensor(src.images[: args.image_batch]).cuda()
-        stats = phase_kernels(step.engine, batch)
+        calls = _capture_calls(step.engine, batch)
+        entry = calls[0][1][0]  # layer3 block0's reduce reads the int8 entry
+        calls += [c for c in _capture_calls(step_row.engine, batch)
+                  if c[0] is tq.q8_conv3_rowtap]
+        stats = phase_kernels(calls)
 
         phase = "slice"
-        launches = phase_slice(args, card, model, step, src)
+        launches, probs_auto, auto_ips = phase_slice(args, card, model, step, src)
+
+        phase = "rowtap"
+        row_launches = phase_rowtap(args, card, step, step_row, src, entry,
+                                    probs_auto, auto_ips)
+
+        phase = "train"
+        phase_train(args, card, base, src)
+
+        phase = "profile"
+        phase_profile(step, src.images[: args.image_batch])
     except Exception as exc:  # report the phase, exit non-zero, no result
         print(f"chip_smoke: phase {phase} failed: {type(exc).__name__}: {exc}",
               file=sys.stderr)
@@ -487,11 +804,10 @@ def main(argv=None) -> int:
 
         traceback.print_exc()
         return 1
-    try:
-        phase_profile(step, src.images[: args.image_batch])
-    except Exception as exc:  # a diagnostic: report it, do not fail the run
-        print(f"[profile] unavailable: {type(exc).__name__}: {exc}")
 
+    # launches on the path that runs each kernel: the counted auto sweep,
+    # and the counted rowtap sweep for the row-Toeplitz kernel
+    launches["q8_conv3_rowtap"] = row_launches["q8_conv3_rowtap"]
     kernels = []
     for fn in tq.KERNELS:
         s = stats[fn]

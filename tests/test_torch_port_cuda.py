@@ -40,6 +40,9 @@ def test_cuda_kernels_match_plain():
     wt_px = _ints(rng, (n, c)).to(dev)
     wt_tap = _ints(rng, (n, 9 * c)).to(dev)
     wt_mm = _ints(rng, (n, 16 * c)).to(dev)
+    # rowtap at layer3 block0's geometry: 4x4 px, stride 2 -> N = 2*c
+    wt_row = _ints(rng, (2 * c, 3 * 4 * c)).to(dev)
+    b_row, ws_row = (a.to(dev) for a in _epi_args(rng, 2 * c))
     b, ws = (a.to(dev) for a in _epi_args(rng, n))
     r = _ints(rng, (m, 4 * n)).to(dev)
     tq.reset_launch_counts()
@@ -50,10 +53,15 @@ def test_cuda_kernels_match_plain():
          dict(residual=r, px=4, c_in=c, px_map=(2, 4, 2), **SCALES)),
         (tq.q8_conv3_tap, (x, wt_tap, b, ws),
          dict(h_in=4, w_in=4, stride=2, c_in=c, out_kind="bf16")),
+        (tq.q8_conv3_rowtap, (x, wt_row, b_row, ws_row),
+         dict(h_in=4, w_in=4, stride=2, c_in=c, **{k: SCALES[k] for k in
+                                                   ("in_scale", "out_scale")})),
+        (tq.q8_conv3_rowtap, (x, wt_row, b_row, ws_row),
+         dict(h_in=4, w_in=4, stride=1, c_in=c, out_kind="bf16")),
     ]
     for fn, args, kw in cases:
         got = fn(*args, **kw)
         want = tq.PLAIN[fn](*args, **kw)
         torch.cuda.synchronize()
         assert torch.equal(got, want), fn.__name__
-    assert [f.launches for f in tq.KERNELS] == [2, 1, 1]
+    assert [f.launches for f in tq.KERNELS] == [2, 1, 1, 2]

@@ -27,7 +27,14 @@ from cellsegmentation_tpu_torch.infer import sample_topk
 from cellsegmentation_tpu_torch.models import Bottleneck, MILNet, ResNetEncoder, build_model
 from cellsegmentation_tpu_torch.models.milnet import init_milnet
 from cellsegmentation_tpu_torch.ops.tiles import tile_grid
-from cellsegmentation_tpu_torch.train.steps import make_tile_infer_step
+from cellsegmentation_tpu_torch.train.schedules import make_schedule
+from cellsegmentation_tpu_torch.train.state import create_train_state
+from cellsegmentation_tpu_torch.train.steps import (
+    make_stack_tile_infer_step,
+    make_tile_infer_step,
+    make_tile_train_step,
+)
+from cellsegmentation_tpu_torch.train.trainers import train_stage2
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "cellsegmentation_tpu")
@@ -76,7 +83,13 @@ def _tiny_model(device="cpu"):
     return init_milnet(model, seed=0).to(device)
 
 
-def test_entry_points_raise_without_cuda(monkeypatch):
+def _quiet_logger(tmp_path):
+    from cellsegmentation_tpu_torch.utils.logging import RunLogger
+
+    return RunLogger(str(tmp_path), tensorboard=False)
+
+
+def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for dev in (None, "cuda", "cuda:0"):
         with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -89,11 +102,20 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         make_tile_infer_step(model, 32, coords, engine="flax")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make_tile_infer_step(model, 32, coords, engine="auto")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_stack_tile_infer_step(model, 32, coords, engine="flax")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_tile_train_step(model, 32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        create_train_state(model, "tile", make_schedule(None, 1e-3, 1, 1))
     rng = np.random.default_rng(0)
     src = LystoDataSource.from_arrays(
         rng.integers(0, 256, (2, 64, 64, 3), np.uint8), ["colon_0", "breast_1"],
         np.asarray([1, 0]), kfold=None,
     )
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_stage2(model, src, None, epochs=1, tile_size=32, interval=16,
+                     infer_engine="flax")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         sample_topk(src, rng.random((2, len(coords)), np.float32), 32, 16,
                     tiles_per_pos=1, topk_neg=1)
@@ -105,6 +127,12 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     sel = sample_topk(src, rng.random((2, len(coords)), np.float32), 32, 16,
                       tiles_per_pos=1, topk_neg=1, device="cpu")
     assert sel["n_pos"] == 1 and sel["n_neg"] == 1
+    stack = make_stack_tile_infer_step(model, 32, coords, device="cpu")
+    assert stack(torch.from_numpy(src.images), [1], [0]).device.type == "cpu"
+    res = train_stage2(model, src, None, epochs=1, tile_size=32, interval=16,
+                       infer_engine="flax", device="cpu",
+                       logger=_quiet_logger(tmp_path))
+    assert res.state.step == 1 and next(model.fc_tile.parameters()).device.type == "cpu"
 
 
 def test_step_refuses_a_model_on_another_device():

@@ -45,6 +45,19 @@ SIZES = (1, 1, 2, 2)
 HW, TILE, INTERVAL, G = 150, 32, 20, 2
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Run the module's torch ops on one intra-op thread. Under pytest-xdist
+    the workers share the host's cores, and torch's OpenMP pool (one thread
+    per core in every worker) then spins at its barriers against the other
+    workers: some of the port's tests ran 10-50x slower under six workers
+    than alone. One thread per worker keeps them near their time alone."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _structured_images(hw, g, seed=3):
     rng = np.random.default_rng(seed)
     xx, yy = np.meshgrid(np.arange(hw), np.arange(hw), indexing="ij")
@@ -180,6 +193,79 @@ def test_gemm_land_matches_pallas(fixture, monkeypatch):
             w = want.astype(np.float32)
             ulp = np.exp2(np.floor(np.log2(np.maximum(np.abs(w), 1e-30))) - 7)
             assert np.all(np.abs(got.float().numpy() - w) <= ulp)
+
+
+def test_rowtap_packing_byte_equal(fixture, monkeypatch):
+    """build_q8_backend(w2_impl="rowtap") packs every 3x3 in the dy-major
+    row-Toeplitz form, byte for byte as the JAX package does under
+    W2_IMPL="rowtap"."""
+    monkeypatch.setattr(jqt, "W2_IMPL", "rowtap")
+    jscales = fixture["jscales"]
+    tfolded = tie.fold_tile_trunk(fixture["tmodel"])
+    tp, tm = tqt.build_q8_backend(tfolded, jscales, 4, 4, first_stage=2,
+                                  w2_impl="rowtap")
+    jp, jm = jqt.build_q8_backend(fixture["jfolded"], jscales, 4, 4,
+                                  first_stage=2)
+    assert [m.w2_impl for m in tm] == ["rowtap"] * 4
+    for a, b in zip(tm, jm):
+        assert dataclasses.asdict(a) == dataclasses.asdict(b)
+    for a, b in zip(tp, jp):
+        assert a.keys() == b.keys()
+        for k in a:
+            assert a[k].dtype == np.asarray(b[k]).dtype, k
+            assert a[k].tobytes() == np.asarray(b[k]).tobytes(), k
+    with pytest.raises(ValueError, match="w2_impl"):
+        tqt.build_q8_backend(tfolded, jscales, 4, 4, first_stage=2,
+                             w2_impl="gdot")
+
+
+def test_rowtap_gemm_land_matches_pallas_and_auto(fixture, monkeypatch):
+    """q8_backend_forward in the row-Toeplitz form on one int8 entry tensor:
+    every block's int8 output equals the JAX package's rowtap trunk in
+    interpret mode and the final bf16 features lie within 1 ulp of it (as
+    in the auto form's test above: XLA contracts the final epilogue's
+    multiply-add, the port rounds each step); against the port's own auto
+    form (tap + whole-tile) every output is bit-identical."""
+    monkeypatch.setattr(jqt, "TILE_ALIGN", 32)
+    monkeypatch.setattr(jqt, "W2_IMPL", "rowtap")
+    jscales, tfolded = fixture["jscales"], tie.fold_tile_trunk(fixture["tmodel"])
+    jp, jm = jqt.build_q8_backend(fixture["jfolded"], jscales, 4, 4, first_stage=2)
+    built = {impl: tqt.build_q8_backend(tfolded, jscales, 4, 4, first_stage=2,
+                                        w2_impl=impl)
+             for impl in ("rowtap", "auto")}
+    tp = {impl: tqt.upload_q8_params(hp, "cpu") for impl, (hp, _) in built.items()}
+    rng = np.random.default_rng(12)
+    xq = rng.integers(-127, 128, size=(32, 16 * jm[0].c_in)).astype(np.int8)
+    for i in range(len(jm)):
+        got = {impl: tqt.q8_backend_forward(tp[impl][: i + 1],
+                                            built[impl][1][: i + 1],
+                                            torch.from_numpy(xq))
+               for impl in tp}
+        assert torch.equal(got["rowtap"], got["auto"]), i
+        want = np.asarray(jqt.q8_backend_forward(jp[: i + 1], jm[: i + 1], xq,
+                                                 interpret=True))
+        if jm[i].s_out is not None:
+            np.testing.assert_array_equal(got["rowtap"].numpy(), want)
+        else:
+            w = want.astype(np.float32)
+            ulp = np.exp2(np.floor(np.log2(np.maximum(np.abs(w), 1e-30))) - 7)
+            assert np.all(np.abs(got["rowtap"].float().numpy() - w) <= ulp)
+
+
+def test_q8dg_sweep_rowtap_equals_auto(fixture):
+    """The whole q8dg sweep with every 3x3 in the row-Toeplitz form gives
+    the same probs as the auto forms, flip-free and flipped."""
+    coords, imgs = fixture["coords"], fixture["imgs"]
+    steps = {
+        impl: tsteps.make_tile_infer_step(
+            fixture["tmodel"], TILE, coords, engine="q8dg", device="cpu",
+            scales=fixture["jscales"], w2_impl=impl)
+        for impl in ("auto", "rowtap")
+    }
+    assert [m.w2_impl for m in steps["rowtap"].engine.metas] == ["rowtap"] * 4
+    for flip in ([0, 0], [0, 3]):
+        f = np.asarray(flip, np.int32)
+        assert torch.equal(steps["rowtap"](imgs, f), steps["auto"](imgs, f))
 
 
 @pytest.mark.parametrize("flip", [None, (0, 3)])
