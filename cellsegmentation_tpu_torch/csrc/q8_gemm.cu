@@ -1,10 +1,13 @@
-// int8 GEMMs of the stage-2 serving trunk, written for Hopper (sm_90a).
+// int8 GEMMs of the stage-2 serving trunk on the mma.sync core, for Hopper (sm_90a).
 //
-// Replaces the four Pallas TPU kernels of cellsegmentation_tpu/ops/q8_gemm.py:
-//   q8_matmul_launch        <- q8_matmul / _mm_kernel           (whole-tile Toeplitz 3x3)
-//   q8_matmul_px_launch     <- q8_matmul_px / _bmm_kernel       (per-pixel 1x1, strided projection)
+// Replaces two Pallas TPU kernels of cellsegmentation_tpu/ops/q8_gemm.py:
 //   q8_conv3_tap_launch     <- q8_conv3_tap / _tap_kernel       (tap-accumulating 3x3)
 //   q8_conv3_rowtap_launch  <- q8_conv3_rowtap / _rowtap_kernel (row-Toeplitz 3x3)
+// q8_matmul and q8_matmul_px run on the wgmma/TMA core of q8_gemm_sm90.cu.
+// This core's MM and PX paths stay as private entries (q8_matmul_mma_launch,
+// q8_matmul_px_mma_launch), a same-run yardstick that only chip_smoke.py and
+// the card test call; they go with the whole core when tap and rowtap move
+// to the wgmma core.
 //
 // What bounds them on the H100: at the trunk's shapes (M = 225 tiles per
 // image x the image batch, K and N of 256..2048) each call does 2*M*N*K int8
@@ -40,18 +43,13 @@
 // double-buffered, with rows padded to 80 bytes so fragment loads hit 32
 // distinct banks. Rows past M are zero-filled on load and masked on store.
 // B is read as wt[N, K] (K contiguous): the engine transposes each weight
-// once when it is built.
-//
-// The epilogue is bit-exact to the Pallas one (ops/q8_gemm.py:106-120):
-//   y = f32(acc) * (in_scale * w_scale[col]); y += bias[col];
-//   y += f32(res) * res_scale; y = relu(y);
-//   int8: clip(rint(y * inv_out), -127, 127)   bf16: RNE(y)   int32: acc
-// with every multiply and add rounded separately (__fmul_rn/__fadd_rn; the
-// library is also built with -fmad=false) and round-half-even (rintf).
+// once when it is built. The epilogue is q8_epilogue.cuh's.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "q8_epilogue.cuh"
 
 namespace {
 
@@ -68,7 +66,6 @@ constexpr int NT = WN / 8;        // n8 tiles per warp
 constexpr int MAX_SEG = 9;
 
 enum { MODE_MM = 0, MODE_PX = 1, MODE_TAP = 2, MODE_ROWTAP = 3 };
-enum { OUT_INT8 = 0, OUT_BF16 = 1, OUT_INT32 = 2 };
 
 struct Params {
   const int8_t* x;      // [M, lda] int8
@@ -107,22 +104,6 @@ __device__ __forceinline__ void mma_s8(int* c, const unsigned* a, const unsigned
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// The shared epilogue up to (and including) the ReLU.
-__device__ __forceinline__ float epilogue(int acc, float ws, float b, float r, bool has_res,
-                                          const Params& p) {
-  float y = __fmul_rn(__int2float_rn(acc), __fmul_rn(p.in_scale, ws));
-  y = __fadd_rn(y, b);
-  if (has_res) y = __fadd_rn(y, __fmul_rn(r, p.res_scale));
-  if (p.relu) y = fmaxf(y, 0.0f);
-  return y;
-}
-
-__device__ __forceinline__ int8_t requant(float y, float inv_out) {
-  float q = rintf(__fmul_rn(y, inv_out));
-  q = fminf(fmaxf(q, -127.0f), 127.0f);
-  return static_cast<int8_t>(__float2int_rn(q));
 }
 
 // Stage one (BM x BK) A tile and one (BN x BK) B tile: each thread copies
@@ -279,12 +260,12 @@ __global__ void __launch_bounds__(THREADS) q8_gemm_kernel(const Params p) {
           r0 = static_cast<float>(rv.x);
           r1 = static_cast<float>(rv.y);
         }
-        const float y0 = epilogue(a0, ws0, b0, r0, has_res, p);
-        const float y1 = epilogue(a1, ws1, b1, r1, has_res, p);
+        const float y0 = q8_epilogue(a0, ws0, b0, r0, has_res, p.in_scale, p.res_scale, p.relu);
+        const float y1 = q8_epilogue(a1, ws1, b1, r1, has_res, p.in_scale, p.res_scale, p.relu);
         if (p.out_kind == OUT_INT8) {
           char2 o;
-          o.x = requant(y0, p.inv_out);
-          o.y = requant(y1, p.inv_out);
+          o.x = q8_requant(y0, p.inv_out);
+          o.y = q8_requant(y1, p.inv_out);
           *reinterpret_cast<char2*>(static_cast<int8_t*>(p.out) + off) = o;
         } else {
           __nv_bfloat162 o;
@@ -328,7 +309,7 @@ Params base(const void* x, const void* wt, const void* bias, const void* wscale,
 extern "C" {
 
 // out[M, N] = epilogue(x[M, K] @ wt[N, K]^T)
-int q8_matmul_launch(const void* x, const void* wt, const void* bias, const void* wscale,
+int q8_matmul_mma_launch(const void* x, const void* wt, const void* bias, const void* wscale,
                      const void* res, void* out, int M, int N, int K, float in_scale,
                      float res_scale, float inv_out, int out_kind, int relu, void* stream) {
   Params p = base(x, wt, bias, wscale, res, out, M, N, in_scale, res_scale, inv_out, out_kind,
@@ -342,7 +323,7 @@ int q8_matmul_launch(const void* x, const void* wt, const void* bias, const void
 }
 
 // out[M, px*N] group p = epilogue(x[:, g(p)*c_in : +c_in] @ wt[N, c_in]^T)
-int q8_matmul_px_launch(const void* x, const void* wt, const void* bias, const void* wscale,
+int q8_matmul_px_mma_launch(const void* x, const void* wt, const void* bias, const void* wscale,
                         const void* res, void* out, int M, int N, int c_in, int lda, int px,
                         int map_stride, int map_w_in, int map_w_out, float in_scale,
                         float res_scale, float inv_out, int out_kind, int relu, void* stream) {

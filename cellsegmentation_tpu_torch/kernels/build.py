@@ -2,10 +2,12 @@
 
 Each source compiles to its own shared library with a plain C interface
 (no PyTorch headers, so a build takes seconds). Libraries land in
-``cellsegmentation_tpu_torch/_build/`` under a name that hashes the source
-and the flags, so an edited source never loads a stale library. A build
+``cellsegmentation_tpu_torch/_build/`` under a name that hashes the source,
+every ``csrc/`` file it includes (``#include "..."``, transitively) and the
+flags, so an edited source or header never loads a stale library. A build
 happens at first use, inside the call that needs the kernel; nothing is
-compiled or loaded when a module is imported.
+compiled or loaded when a module is imported. ``build_all`` runs one nvcc
+per source, all at once.
 """
 
 from __future__ import annotations
@@ -13,10 +15,13 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -29,8 +34,11 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
-# compiler output of each build (ptxas register / spill report), by source
+# compiler output of each build (ptxas register / spill report) and its
+# seconds, by source
 build_logs: dict[str, str] = {}
+build_secs: dict[str, float] = {}
+_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 
 
 def _nvcc() -> str:
@@ -47,12 +55,26 @@ def _nvcc() -> str:
     )
 
 
+def sources_of(source: str) -> list[str]:
+    """``source`` and the ``csrc/`` files it includes, transitively, in the
+    order first met."""
+    found, todo = [], [source]
+    while todo:
+        name = todo.pop(0)
+        if name in found:
+            continue
+        found.append(name)
+        text = (CSRC / name).read_text()
+        todo += [inc for inc in _INCLUDE.findall(text) if (CSRC / inc).is_file()]
+    return found
+
+
 def library_path(source: str) -> Path:
-    src = CSRC / source
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"lib{src.stem}_{digest}.so"
+    digest = hashlib.sha256()
+    for name in sources_of(source):
+        digest.update(name.encode() + b"\0" + (CSRC / name).read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{Path(source).stem}_{digest.hexdigest()[:16]}.so"
 
 
 def build(source: str) -> Path:
@@ -64,10 +86,12 @@ def build(source: str) -> Path:
     fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
     os.close(fd)
     try:
+        t0 = time.perf_counter()
         proc = subprocess.run(
             [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / source)],
             capture_output=True, text=True,
         )
+        build_secs[source] = time.perf_counter() - t0
         build_logs[source] = proc.stdout + proc.stderr
         if proc.returncode != 0:
             raise RuntimeError(
@@ -79,6 +103,13 @@ def build(source: str) -> Path:
         if os.path.exists(tmp):
             os.unlink(tmp)
     return out
+
+
+def build_all(sources) -> dict[str, Path]:
+    """Build several sources at once, one nvcc process each."""
+    sources = list(sources)
+    with ThreadPoolExecutor(max_workers=max(1, len(sources))) as pool:
+        return dict(zip(sources, pool.map(build, sources)))
 
 
 def load(source: str) -> ctypes.CDLL:

@@ -2,13 +2,19 @@
 the compute primitive of the stage-2 serving trunk (ops/q8_trunk.py).
 
 Four wrappers, each the counterpart of one Pallas TPU kernel of
-``cellsegmentation_tpu/ops/q8_gemm.py``, and each backed by one entry point
-of ``csrc/q8_gemm.cu`` (one tiled mma.sync int8 core, see the source note):
+``cellsegmentation_tpu/ops/q8_gemm.py``, on one of two int8 cores (see the
+source notes):
 
-- ``q8_matmul``        <- ``q8_matmul`` (``_mm_kernel``)
-- ``q8_matmul_px``     <- ``q8_matmul_px`` (``_bmm_kernel``)
-- ``q8_conv3_tap``     <- ``q8_conv3_tap`` (``_tap_kernel``)
-- ``q8_conv3_rowtap``  <- ``q8_conv3_rowtap`` (``_rowtap_kernel``)
+- ``q8_matmul``        <- ``q8_matmul`` (``_mm_kernel``)        wgmma/TMA core,
+- ``q8_matmul_px``     <- ``q8_matmul_px`` (``_bmm_kernel``)    ``csrc/q8_gemm_sm90.cu``
+- ``q8_conv3_tap``     <- ``q8_conv3_tap`` (``_tap_kernel``)      mma.sync core,
+- ``q8_conv3_rowtap``  <- ``q8_conv3_rowtap`` (``_rowtap_kernel``) ``csrc/q8_gemm.cu``
+
+The wgmma core's tile shape is chosen here (``sm90_config``) and passed to
+its C entry. The mma.sync core's own matmul and px paths stay reachable as
+the private ``_q8_matmul_mma`` and ``_q8_matmul_px_mma`` (``MMA_CORE``): a
+same-run yardstick for ``chip_smoke.py`` and the card test, never called by
+the port's main path.
 
 Weights are taken TRANSPOSED, ``wt [N, K]`` (K contiguous), which is what
 the kernel's B fragments read; the engine transposes the packed ``[K, N]``
@@ -31,14 +37,22 @@ in a plain integer attribute ``<wrapper>.launches``.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
 
 _OUT_KINDS = {"int8": (0, torch.int8), "bf16": (1, torch.bfloat16),
               "int32": (2, torch.int32)}
-# the CUDA core's tile sizes: N must tile by BN, every K segment by BK
-BN, BK = 128, 64
+# the mma.sync core (q8_gemm.cu): N must tile by 128, every K segment by 64
+MMA_BN, MMA_BK = 128, 64
+# the wgmma/TMA core (q8_gemm_sm90.cu): 128-row tiles, 128-byte K stages;
+# the constants mirror the source's
+SM90_BM, SM90_BK = 128, 128
+SM90_MAX_STAGES = 6
+SM90_SMEM_LIMIT = 232448  # dynamic shared memory a Hopper block may use
+H100_SMS = 132
+_OUT_BYTES = {"int8": 1, "bf16": 2, "int32": 4}
 
 
 # ---------------------------------------------------------------------------
@@ -175,6 +189,88 @@ def q8_conv3_rowtap_plain(x, wt, bias, w_scale, h_in=0, w_in=0, stride=1,
 
 
 # ---------------------------------------------------------------------------
+# the wgmma core's tile shape and tile order (mirrors q8_gemm_sm90.cu)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Sm90Config:
+    """One call's tile shape on the wgmma core: BN output columns by
+    ``SM90_BM`` rows per tile, ``stages`` ring stages, ``smem`` bytes of
+    dynamic shared memory; tiles number (M tile, pixel group, N tile)."""
+
+    bn: int
+    stages: int
+    m_tiles: int
+    px: int
+    n_tiles: int
+    smem: int
+
+    @property
+    def tiles(self) -> int:
+        return self.m_tiles * self.px * self.n_tiles
+
+
+def sm90_smem(bn: int, stages: int, has_res: bool, out_kind: str) -> int:
+    """Shared memory of one block, as the source lays it out: alignment
+    slack, the ring, two residual tiles, the output staging, mbarriers."""
+    return (1024 + stages * (SM90_BM + bn) * SM90_BK
+            + (2 * SM90_BM * bn if has_res else 0)
+            + SM90_BM * bn * _OUT_BYTES[out_kind] + 8 * (2 * SM90_MAX_STAGES + 4))
+
+
+def sm90_stages(bn: int, has_res: bool, out_kind: str) -> int:
+    """The longest ring (at most SM90_MAX_STAGES) that fits a block's shared
+    memory beside the epilogue's buffers; 0 below two stages."""
+    fit = [s for s in range(2, SM90_MAX_STAGES + 1)
+           if sm90_smem(bn, s, has_res, out_kind) <= SM90_SMEM_LIMIT]
+    return max(fit, default=0)
+
+
+@functools.lru_cache(maxsize=None)
+def sm90_config(m: int, n: int, k_seg: int, px: int, out_kind: str,
+                has_res: bool) -> Sm90Config:
+    """The wgmma core's tile shape for one call (M rows, N output columns
+    per pixel group, a K segment per group, px groups), or ValueError for a
+    call it does not take.
+
+    BN = 256 halves the B bytes read from shared memory per operation and
+    the epilogue's per-tile overhead; it is taken where its ring holds the
+    tile's whole K segment or at least three stages beside the epilogue's
+    buffers (fewer expose the loads' latency), else BN = 128. The ring
+    takes as many stages as shared memory holds, up to SM90_MAX_STAGES."""
+    if out_kind not in _OUT_BYTES:
+        raise ValueError(f"out_kind must be one of {list(_OUT_BYTES)}")
+    if m < 1 or px < 1 or k_seg < SM90_BK or k_seg % SM90_BK or n % 128:
+        raise ValueError(
+            f"the wgmma core needs M >= 1, K % {SM90_BK} == 0 per segment and "
+            f"N % 128 == 0, got M={m}, K={k_seg}, N={n}")
+    bn = 128
+    if (n % 256 == 0 and out_kind != "int32"
+            and sm90_stages(256, has_res, out_kind) >= min(3, k_seg // SM90_BK)):
+        bn = 256
+    stages = sm90_stages(bn, has_res, out_kind)
+    if stages < 2:
+        raise ValueError("the wgmma core has no ring that fits this call")
+    return Sm90Config(bn, stages, -(-m // SM90_BM), px, n // bn,
+                      sm90_smem(bn, stages, has_res, out_kind))
+
+
+def sm90_tile_order(cfg: Sm90Config, n_sm: int = H100_SMS):
+    """Per CTA of the persistent grid, the (M tile, pixel group, N tile) it
+    computes, in order: CTA b takes tiles b, b + grid, ... with N innermost."""
+    grid = min(n_sm, cfg.tiles)
+    order = []
+    for b in range(grid):
+        mine = []
+        for t in range(b, cfg.tiles, grid):
+            q = t // cfg.n_tiles
+            mine.append((q // cfg.px, q % cfg.px, t % cfg.n_tiles))
+        order.append(mine)
+    return order
+
+
+# ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
 
@@ -185,15 +281,27 @@ def _lib():
 
     lib = build.load("q8_gemm.cu")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.q8_matmul_launch.argtypes = [p, p, p, p, p, p, i, i, i, f, f, f, i, i, p]
-    lib.q8_matmul_px_launch.argtypes = [
+    lib.q8_matmul_mma_launch.argtypes = [p, p, p, p, p, p, i, i, i, f, f, f, i, i, p]
+    lib.q8_matmul_px_mma_launch.argtypes = [
         p, p, p, p, p, p, i, i, i, i, i, i, i, i, f, f, f, i, i, p]
     lib.q8_conv3_tap_launch.argtypes = [
         p, p, p, p, p, i, i, i, i, i, i, f, f, i, i, p]
     lib.q8_conv3_rowtap_launch.argtypes = lib.q8_conv3_tap_launch.argtypes
-    for fn in (lib.q8_matmul_launch, lib.q8_matmul_px_launch,
+    for fn in (lib.q8_matmul_mma_launch, lib.q8_matmul_px_mma_launch,
                lib.q8_conv3_tap_launch, lib.q8_conv3_rowtap_launch):
         fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _lib_sm90():
+    from cellsegmentation_tpu_torch.kernels import build
+
+    lib = build.load("q8_gemm_sm90.cu")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.q8_gemm_sm90_launch.argtypes = [
+        p, p, p, p, p, p, i, i, i, i, i, i, i, i, f, f, f, i, i, i, i, p]
+    lib.q8_gemm_sm90_launch.restype = ctypes.c_int
     return lib
 
 
@@ -206,7 +314,7 @@ def _px_c_in(x, px, c_in, px_map):
     return x.shape[1] // px
 
 
-def _check(name, x, wt, bias, w_scale, residual, out_kind, k_seg, n):
+def _check(name, x, wt, bias, w_scale, residual, out_kind):
     if out_kind not in _OUT_KINDS:
         raise ValueError(f"{name}: out_kind must be one of {list(_OUT_KINDS)}")
     dev = x.device
@@ -221,6 +329,7 @@ def _check(name, x, wt, bias, w_scale, residual, out_kind, k_seg, n):
             raise ValueError(f"{name}: {what} must be contiguous")
     if x.dim() != 2 or wt.dim() != 2:
         raise ValueError(f"{name}: x and wt must be 2-D")
+    n = wt.shape[0]
     if bias.shape != (n,) or w_scale.shape != (n,):
         raise ValueError(f"{name}: bias/w_scale must be [{n}]")
     if residual is not None:
@@ -229,16 +338,18 @@ def _check(name, x, wt, bias, w_scale, residual, out_kind, k_seg, n):
         if not residual.is_contiguous():
             raise ValueError(f"{name}: residual must be contiguous")
     if dev.type == "cuda":
-        if n % BN or k_seg % BK:
-            raise ValueError(
-                f"{name}: the CUDA kernel needs N % {BN} == 0 and K % {BK} "
-                f"== 0 per segment, got N={n}, K={k_seg}"
-            )
-        for t in (x, wt) + (() if residual is None else (residual,)):
+        for t in (x, wt, bias, w_scale) + (() if residual is None else (residual,)):
             if t.data_ptr() % 16:
-                raise ValueError(f"{name}: int8 operands must be 16-byte aligned")
+                raise ValueError(f"{name}: operands must be 16-byte aligned")
     elif dev.type != "cpu":
         raise ValueError(f"{name}: unsupported device {dev}")
+
+
+def _mma_rules(name, n, k_seg):
+    if n % MMA_BN or k_seg % MMA_BK:
+        raise ValueError(
+            f"{name}: the mma.sync kernel needs N % {MMA_BN} == 0 and K % "
+            f"{MMA_BK} == 0 per segment, got N={n}, K={k_seg}")
 
 
 def _ptr(t):
@@ -247,31 +358,66 @@ def _ptr(t):
 
 def _raise_on(name, err):
     if err:
-        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _matmul_shapes(x, wt, bias, w_scale, residual, out_kind):
+    m, k = x.shape
+    n = wt.shape[0]
+    _check("q8_matmul", x, wt, bias, w_scale, residual, out_kind)
+    if wt.shape[1] != k:
+        raise ValueError(f"q8_matmul: wt is {tuple(wt.shape)}, want [N, {k}]")
+    if residual is not None and residual.shape != (m, n):
+        raise ValueError(f"q8_matmul: residual must be [{m}, {n}]")
+    return m, k, n
+
+
+def _px_shapes(x, wt, bias, w_scale, residual, px, c_in, px_map, out_kind):
+    m = x.shape[0]
+    c_in = _px_c_in(x, px, c_in, px_map)
+    n = wt.shape[0]
+    if out_kind == "int32":
+        raise ValueError("q8_matmul_px: out_kind must be int8 or bf16")
+    _check("q8_matmul_px", x, wt, bias, w_scale, residual, out_kind)
+    if wt.shape[1] != c_in or x.shape[1] % c_in:
+        raise ValueError(f"q8_matmul_px: wt must be [N', {c_in}] and x [M, px_in*{c_in}]")
+    if max(px_groups(px, px_map)) >= x.shape[1] // c_in:
+        raise ValueError("q8_matmul_px: px/px_map read past x's pixel groups")
+    if residual is not None and residual.shape != (m, px * n):
+        raise ValueError(f"q8_matmul_px: residual must be [{m}, {px * n}]")
+    return m, c_in, n
+
+
+def _sm90_launch(name, x, wt, bias, w_scale, residual, m, n, c_in, px, px_map,
+                 out_kind, in_scale, res_scale, out_scale, relu):
+    """[M, px*N] = one call of the wgmma/TMA core, at sm90_config's shape."""
+    cfg = sm90_config(m, n, c_in, px, out_kind, residual is not None)
+    kind, dtype = _OUT_KINDS[out_kind]
+    stride, w_in, w_out = px_map if px_map is not None else (0, 0, 0)
+    out = torch.empty((m, px * n), dtype=dtype, device=x.device)
+    err = _lib_sm90().q8_gemm_sm90_launch(
+        x.data_ptr(), wt.data_ptr(), bias.data_ptr(), w_scale.data_ptr(),
+        _ptr(residual), out.data_ptr(), m, n, c_in, x.shape[1], px, stride,
+        w_in, w_out, in_scale, res_scale, 1.0 / out_scale, kind, int(relu),
+        cfg.bn, cfg.stages, _stream(x),
+    )
+    _raise_on(name, err)
+    return out
 
 
 def q8_matmul(x, wt, bias, w_scale, residual=None, out_kind="int8",
               in_scale=1.0, res_scale=1.0, out_scale=1.0, relu=True):
     """epilogue(x_i8 [M, K] @ wt_i8 [N, K]^T) -> [M, N] int8 | bf16 | int32."""
-    m, k = x.shape
-    n = wt.shape[0]
-    _check("q8_matmul", x, wt, bias, w_scale, residual, out_kind, k, n)
-    if wt.shape[1] != k:
-        raise ValueError(f"q8_matmul: wt is {tuple(wt.shape)}, want [N, {k}]")
-    if residual is not None and residual.shape != (m, n):
-        raise ValueError(f"q8_matmul: residual must be [{m}, {n}]")
+    m, k, n = _matmul_shapes(x, wt, bias, w_scale, residual, out_kind)
     if x.device.type == "cpu":
         return q8_matmul_plain(x, wt, bias, w_scale, residual, out_kind,
                                in_scale, res_scale, out_scale, relu)
-    kind, dtype = _OUT_KINDS[out_kind]
-    out = torch.empty((m, n), dtype=dtype, device=x.device)
-    err = _lib().q8_matmul_launch(
-        x.data_ptr(), wt.data_ptr(), bias.data_ptr(), w_scale.data_ptr(),
-        _ptr(residual), out.data_ptr(), m, n, k, in_scale, res_scale,
-        1.0 / out_scale, kind, int(relu),
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    _raise_on("q8_matmul", err)
+    out = _sm90_launch("q8_matmul", x, wt, bias, w_scale, residual, m, n, k,
+                       1, None, out_kind, in_scale, res_scale, out_scale, relu)
     q8_matmul.launches += 1
     return out
 
@@ -282,33 +428,54 @@ def q8_matmul_px(x, wt, bias, w_scale, residual=None, px=1, c_in=0,
     """Per-pixel 1x1 conv on the whole-tile layout: for each output pixel
     group p, epilogue(x[:, g(p)*c_in : +c_in] @ wt [N', c_in]^T) lands in
     columns [p*N', (p+1)*N') of the [M, px*N'] output."""
-    m = x.shape[0]
-    c_in = _px_c_in(x, px, c_in, px_map)
-    n = wt.shape[0]
-    if out_kind == "int32":
-        raise ValueError("q8_matmul_px: out_kind must be int8 or bf16")
-    _check("q8_matmul_px", x, wt, bias, w_scale, residual, out_kind, c_in, n)
-    if wt.shape[1] != c_in or x.shape[1] % c_in:
-        raise ValueError(f"q8_matmul_px: wt must be [N', {c_in}] and x [M, px_in*{c_in}]")
-    if max(px_groups(px, px_map)) >= x.shape[1] // c_in:
-        raise ValueError("q8_matmul_px: px/px_map read past x's pixel groups")
-    if residual is not None and residual.shape != (m, px * n):
-        raise ValueError(f"q8_matmul_px: residual must be [{m}, {px * n}]")
+    m, c_in, n = _px_shapes(x, wt, bias, w_scale, residual, px, c_in, px_map,
+                            out_kind)
     if x.device.type == "cpu":
         return q8_matmul_px_plain(x, wt, bias, w_scale, residual, px, c_in,
                                   px_map, out_kind, in_scale, res_scale,
                                   out_scale, relu)
+    out = _sm90_launch("q8_matmul_px", x, wt, bias, w_scale, residual, m, n,
+                       c_in, px, px_map, out_kind, in_scale, res_scale,
+                       out_scale, relu)
+    q8_matmul_px.launches += 1
+    return out
+
+
+def _q8_matmul_mma(x, wt, bias, w_scale, residual=None, out_kind="int8",
+                   in_scale=1.0, res_scale=1.0, out_scale=1.0, relu=True):
+    """``q8_matmul`` on the mma.sync core (q8_gemm.cu), CUDA tensors only,
+    not counted: the same-run yardstick of the wgmma core."""
+    m, k, n = _matmul_shapes(x, wt, bias, w_scale, residual, out_kind)
+    _mma_rules("q8_matmul", n, k)
+    kind, dtype = _OUT_KINDS[out_kind]
+    out = torch.empty((m, n), dtype=dtype, device=x.device)
+    err = _lib().q8_matmul_mma_launch(
+        x.data_ptr(), wt.data_ptr(), bias.data_ptr(), w_scale.data_ptr(),
+        _ptr(residual), out.data_ptr(), m, n, k, in_scale, res_scale,
+        1.0 / out_scale, kind, int(relu), _stream(x),
+    )
+    _raise_on("q8_matmul", err)
+    return out
+
+
+def _q8_matmul_px_mma(x, wt, bias, w_scale, residual=None, px=1, c_in=0,
+                      px_map=None, out_kind="int8", in_scale=1.0,
+                      res_scale=1.0, out_scale=1.0, relu=True):
+    """``q8_matmul_px`` on the mma.sync core (q8_gemm.cu), CUDA tensors
+    only, not counted: the same-run yardstick of the wgmma core."""
+    m, c_in, n = _px_shapes(x, wt, bias, w_scale, residual, px, c_in, px_map,
+                            out_kind)
+    _mma_rules("q8_matmul_px", n, c_in)
     kind, dtype = _OUT_KINDS[out_kind]
     stride, w_in, w_out = px_map if px_map is not None else (0, 0, 0)
     out = torch.empty((m, px * n), dtype=dtype, device=x.device)
-    err = _lib().q8_matmul_px_launch(
+    err = _lib().q8_matmul_px_mma_launch(
         x.data_ptr(), wt.data_ptr(), bias.data_ptr(), w_scale.data_ptr(),
         _ptr(residual), out.data_ptr(), m, n, c_in, x.shape[1], px,
         stride, w_in, w_out, in_scale, res_scale, 1.0 / out_scale, kind,
-        int(relu), torch.cuda.current_stream(x.device).cuda_stream,
+        int(relu), _stream(x),
     )
     _raise_on("q8_matmul_px", err)
-    q8_matmul_px.launches += 1
     return out
 
 
@@ -323,12 +490,13 @@ def q8_conv3_tap(x, wt, bias, w_scale, h_in=0, w_in=0, stride=1, c_in=0,
     n = wt.shape[0]
     if out_kind == "int32":
         raise ValueError("q8_conv3_tap: out_kind must be int8 or bf16")
-    _check("q8_conv3_tap", x, wt, bias, w_scale, None, out_kind, c_in, n)
+    _check("q8_conv3_tap", x, wt, bias, w_scale, None, out_kind)
     if x.shape[1] != h_in * w_in * c_in or wt.shape[1] != 9 * c_in:
         raise ValueError("q8_conv3_tap: x must be [M, h_in*w_in*c_in] and wt [N, 9*c_in]")
     if x.device.type == "cpu":
         return q8_conv3_tap_plain(x, wt, bias, w_scale, h_in, w_in, stride,
                                   c_in, out_kind, in_scale, out_scale, relu)
+    _mma_rules("q8_conv3_tap", n, c_in)
     kind, dtype = _OUT_KINDS[out_kind]
     _, h_out, w_out = tap_table(h_in, w_in, stride)
     out = torch.empty((m, h_out * w_out * n), dtype=dtype, device=x.device)
@@ -336,7 +504,7 @@ def q8_conv3_tap(x, wt, bias, w_scale, h_in=0, w_in=0, stride=1, c_in=0,
         x.data_ptr(), wt.data_ptr(), bias.data_ptr(), w_scale.data_ptr(),
         out.data_ptr(), m, n, c_in, h_in, w_in, stride, in_scale,
         1.0 / out_scale, kind, int(relu),
-        torch.cuda.current_stream(x.device).cuda_stream,
+        _stream(x),
     )
     _raise_on("q8_conv3_tap", err)
     q8_conv3_tap.launches += 1
@@ -357,7 +525,7 @@ def q8_conv3_rowtap(x, wt, bias, w_scale, h_in=0, w_in=0, stride=1, c_in=0,
     k_row = w_in * c_in
     if out_kind == "int32":
         raise ValueError("q8_conv3_rowtap: out_kind must be int8 or bf16")
-    _check("q8_conv3_rowtap", x, wt, bias, w_scale, None, out_kind, k_row, n)
+    _check("q8_conv3_rowtap", x, wt, bias, w_scale, None, out_kind)
     if x.shape[1] != h_in * k_row or wt.shape[1] != 3 * k_row:
         raise ValueError("q8_conv3_rowtap: x must be [M, h_in*w_in*c_in] and "
                          "wt [N, 3*w_in*c_in]")
@@ -366,6 +534,7 @@ def q8_conv3_rowtap(x, wt, bias, w_scale, h_in=0, w_in=0, stride=1, c_in=0,
     if x.device.type == "cpu":
         return q8_conv3_rowtap_plain(x, wt, bias, w_scale, h_in, w_in, stride,
                                      c_in, out_kind, in_scale, out_scale, relu)
+    _mma_rules("q8_conv3_rowtap", n, k_row)
     kind, dtype = _OUT_KINDS[out_kind]
     h_out = (h_in - 1) // stride + 1
     out = torch.empty((m, h_out * n), dtype=dtype, device=x.device)
@@ -373,7 +542,7 @@ def q8_conv3_rowtap(x, wt, bias, w_scale, h_in=0, w_in=0, stride=1, c_in=0,
         x.data_ptr(), wt.data_ptr(), bias.data_ptr(), w_scale.data_ptr(),
         out.data_ptr(), m, n, c_in, h_in, w_in, stride, in_scale,
         1.0 / out_scale, kind, int(relu),
-        torch.cuda.current_stream(x.device).cuda_stream,
+        _stream(x),
     )
     _raise_on("q8_conv3_rowtap", err)
     q8_conv3_rowtap.launches += 1
@@ -384,6 +553,8 @@ KERNELS = (q8_matmul, q8_matmul_px, q8_conv3_tap, q8_conv3_rowtap)
 PLAIN = {q8_matmul: q8_matmul_plain, q8_matmul_px: q8_matmul_px_plain,
          q8_conv3_tap: q8_conv3_tap_plain,
          q8_conv3_rowtap: q8_conv3_rowtap_plain}
+# the mma.sync core's matmul and px paths, for the same-run comparison only
+MMA_CORE = {q8_matmul: _q8_matmul_mma, q8_matmul_px: _q8_matmul_px_mma}
 for _fn in KERNELS:
     _fn.launches = 0
 

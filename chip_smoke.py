@@ -6,13 +6,18 @@ ResNet-50 MILNet on 299^2 images (32-px tiles, interval 20, 225 tiles per
 image), with seeded random weights and seeded synthetic LYSTO images:
 
 1. device: the card's name and power limit, the TF32 flags;
-2. build: csrc/q8_gemm.cu with nvcc, and the ptxas report;
+2. build: csrc/q8_gemm.cu (the mma.sync core) and csrc/q8_gemm_sm90.cu (the
+   wgmma/TMA core), one nvcc each, started together, with the ptxas report;
 3. kernels: every int8 GEMM call of one sweep step, captured at its real
    shape and data (the auto-form engine's, and the 9 row-Toeplitz 3x3s of
    an engine built with ``w2_impl="rowtap"``), run through its CUDA kernel
-   and its plain PyTorch version (int8/int32 exact, bf16 within 1 ulp),
-   timed in a CUDA graph beside ``torch._int_mm`` on the same GEMM and the
-   card's bound for the work;
+   and its plain PyTorch version (int8/int32 exact, bf16 within 1 ulp);
+   q8_matmul and q8_matmul_px also through the mma.sync core, which they
+   must match bit for bit. Each call timed in CUDA graphs with cold
+   operands (copies rotated past twice L2) and warm, the wgmma and mma.sync
+   cores in turns, beside ``torch._int_mm`` on the same GEMM and the card's
+   bound for the work, which no time may beat; then the GEMM-land seam
+   (``q8_backend_forward``) on one captured entry tensor, on both cores;
 4. slice: ``make_tile_infer_step(engine="auto")`` must resolve to q8dg;
    ``inference_tiles`` over flip-free and flipped image batches and
    ``sample_topk``, with launch counts of 1 tap, 8 q8_matmul and 20
@@ -27,7 +32,8 @@ image), with seeded random weights and seeded synthetic LYSTO images:
    the CLI's 40,960-tile batch; one train step on the card against the
    same step through the port on the CPU, and two planted faults (wrong
    flips, a transposed gather) that this gate must reject;
-7. profile: device time by kernel over one sweep step;
+7. profile: device time by kernel over one sweep step, with the wgmma
+   kernel's 28 launches under its own name;
 8. one JSON line with every kernel's launches and times;
 9. last line: {"ok": true, "device": {...}}.
 
@@ -48,7 +54,15 @@ import time
 
 PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8 tensor-core rate, op/s
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 rate, B/s
-SOURCE = "cellsegmentation_tpu_torch/csrc/q8_gemm.cu"
+SOURCES = {
+    "q8_matmul": "cellsegmentation_tpu_torch/csrc/q8_gemm_sm90.cu",
+    "q8_matmul_px": "cellsegmentation_tpu_torch/csrc/q8_gemm_sm90.cu",
+    "q8_conv3_tap": "cellsegmentation_tpu_torch/csrc/q8_gemm.cu",
+    "q8_conv3_rowtap": "cellsegmentation_tpu_torch/csrc/q8_gemm.cu",
+}
+# a cold timing rotates over copies of a call's operands until the bytes
+# touched between two uses of one copy pass twice the H100's 50 MB L2
+COLD_BYTES = 100e6
 REPLACES = {
     "q8_matmul": "cellsegmentation_tpu/ops/q8_gemm.py:128",
     "q8_matmul_px": "cellsegmentation_tpu/ops/q8_gemm.py:542",
@@ -128,20 +142,45 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def graph_ms(fn, iters: int = 20) -> float:
-    """Device time of one call: ``iters`` calls captured in one CUDA graph
-    and replayed, so the wrapper's host work (ctypes, checks) is not timed."""
+def graph_ms(fn, args=(), kw=None, iters: int = 20, cold: bool = False) -> float:
+    """Device time of one call ``fn(*args, **kw)``: ``iters`` calls captured
+    in one CUDA graph and replayed, so the wrapper's host work (ctypes,
+    checks) is not timed. Warm: every call on the same operands, its output
+    dropped (the next call's reuses the memory), so operands that fit L2
+    stay there. Cold: the calls rotate over copies of every tensor operand
+    and keep their outputs, so more than COLD_BYTES are touched between two
+    uses of one copy."""
     import torch
 
+    kw = kw or {}
+    sets = [(args, kw)]
+    if cold:
+        out = fn(*args, **kw)
+        tensors = [v for v in (*args, *kw.values()) if torch.is_tensor(v)]
+        ws = sum(t.nbytes for t in tensors) + out.nbytes
+        n = max(2, int(COLD_BYTES // ws) + 1)
+        iters = max(iters, n)
+
+        def cp(v):
+            return v.clone() if torch.is_tensor(v) else v
+
+        sets = [(tuple(cp(a) for a in args), {k: cp(v) for k, v in kw.items()})
+                for _ in range(n)]
+        del out
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        fn()
+        fn(*args, **kw)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
+    keep = []
     with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
+        for i in range(iters):
+            a, k = sets[i % len(sets)]
+            out = fn(*a, **k)
+            if cold:
+                keep.append(out)
+        del out
     graph.replay()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -149,7 +188,10 @@ def graph_ms(fn, iters: int = 20) -> float:
     graph.replay()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    ms = start.elapsed_time(end) / iters
+    del graph, keep, sets
+    torch.cuda.empty_cache()
+    return ms
 
 
 def quiet_head(model):
@@ -182,14 +224,16 @@ def phase_build():
     from cellsegmentation_tpu_torch.kernels import build, q8_gemm
 
     t0 = time.perf_counter()
-    path = build.build("q8_gemm.cu")
+    paths = build.build_all(["q8_gemm.cu", "q8_gemm_sm90.cu"])
     q8_gemm._lib()
-    secs = time.perf_counter() - t0
-    report = [ln for ln in build.build_logs.get("q8_gemm.cu", "").splitlines()
-              if "registers" in ln or "spill" in ln]
-    print(f"[build] {path.name} in {secs:.1f} s")
-    for ln in report:
-        print(f"[build] {ln.strip()}")
+    q8_gemm._lib_sm90()
+    print(f"[build] both sources in {time.perf_counter() - t0:.1f} s, one nvcc each")
+    for source, path in paths.items():
+        print(f"[build] {source} -> {path.name} in "
+              f"{build.build_secs.get(source, 0.0):.1f} s")
+        for ln in build.build_logs.get(source, "").splitlines():
+            if "registers" in ln or "spill" in ln or "Compiling entry" in ln:
+                print(f"[build]   {ln.strip()}")
 
 
 def _capture_calls(engine, images):
@@ -218,9 +262,9 @@ def _capture_calls(engine, images):
 
 
 def _work(fn, args, kw):
-    """(int8 ops, bytes moved once, library call, the library call's int8
-    ops) of one captured call. The library call's operands are gathered
-    here, untimed."""
+    """(int8 ops, bytes moved once, the library call's operands, its int8
+    ops) of one captured call. The library call, ``torch._int_mm``, gets
+    its operands gathered here, untimed."""
     import torch
 
     from cellsegmentation_tpu_torch.kernels import q8_gemm as tq
@@ -285,22 +329,38 @@ def _work(fn, args, kw):
     if res is not None:
         nbytes += res.numel()
     lib_ops = 2 * a.shape[0] * a.shape[1] * b.shape[1]
-    return ops, nbytes, (lambda: torch._int_mm(a, b)), lib_ops
+    return ops, nbytes, (a, b), lib_ops
+
+
+def _in_turns(fns, args, kw, cold=True):
+    """Graph times of several versions of one call in turns (a, b, b, a):
+    the mean of each version's two readings."""
+    order = list(fns) + list(reversed(fns))
+    ms = {f: 0.0 for f in fns}
+    for f in order:
+        ms[f] += graph_ms(f, args, kw, cold=cold) / 2
+    return ms
 
 
 def phase_kernels(calls):
-    """Each kernel against its plain version at the main path's shapes."""
+    """Each kernel against its plain version at the main path's shapes; the
+    wgmma core's two kernels also against the mma.sync core, and timed
+    against it in turns."""
     import torch
 
     from cellsegmentation_tpu_torch.kernels import q8_gemm as tq
 
     torch.cuda.synchronize()
-    stats = {fn: dict(calls=0, err=0.0, ms=0.0, wrapper_ms=0.0, plain_ms=0.0,
-                      lib_ms=0.0, bound_ms=0.0, ops_ms=0.0, bytes_ms=0.0,
-                      ops=0, lib_ops=0) for fn in tq.KERNELS}
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    stats = {fn: dict(calls=0, err=0.0, ms=0.0, warm_ms=0.0, mma_ms=0.0,
+                      mma_warm_ms=0.0, mma_wrapper_ms=0.0, wrapper_ms=0.0,
+                      plain_ms=0.0, lib_ms=0.0,
+                      lib_warm_ms=0.0, bound_ms=0.0, ops_ms=0.0, bytes_ms=0.0,
+                      ops=0, lib_ops=0, worst=0.0) for fn in tq.KERNELS}
     for fn, args, kw in calls:
         got = fn(*args, **kw)
         want = tq.PLAIN[fn](*args, **kw)
+        old = tq.MMA_CORE[fn](*args, **kw) if fn in tq.MMA_CORE else None
         torch.cuda.synchronize()
         check(got.shape == want.shape and got.dtype == want.dtype,
               f"{fn.__name__}: shape/dtype {got.shape}/{got.dtype} vs "
@@ -313,35 +373,111 @@ def phase_kernels(calls):
             check(bool((diff <= ulp).all()), f"{fn.__name__}: bf16 off by > 1 ulp")
         else:
             check(err == 0.0, f"{fn.__name__}: {got.dtype} output differs by {err}")
-        ops, nbytes, lib, lib_ops = _work(fn, args, kw)
+        if old is not None:
+            check(torch.equal(got, old),
+                  f"{fn.__name__}: the wgmma and mma.sync cores differ")
+        del got, want, old
+        ops, nbytes, lib_args, lib_ops = _work(fn, args, kw)
+        t_ops, t_bytes = ops / PEAK_INT8_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        bound = max(t_ops, t_bytes)
         s = stats[fn]
+        if fn in tq.MMA_CORE:
+            mma = tq.MMA_CORE[fn]
+            cold = _in_turns((fn, mma), args, kw)
+            warm = _in_turns((fn, mma), args, kw, cold=False)
+            ms, mma_ms = cold[fn], cold[mma]
+            s["mma_ms"] += mma_ms
+            s["mma_warm_ms"] += warm[mma]
+            s["mma_wrapper_ms"] += cuda_ms(lambda: mma(*args, **kw), iters=20)
+            s["worst"] = max(s["worst"], ms / mma_ms)
+        else:
+            ms = graph_ms(fn, args, kw, cold=True)
+            warm = {fn: graph_ms(fn, args, kw)}
+        check(bound <= ms, f"{fn.__name__}: {ms:.5f} ms beats its bound "
+              f"{bound:.5f} ms: a timing that cannot be")
         s["calls"] += 1
         s["err"] = max(s["err"], err)
-        s["ms"] += graph_ms(lambda: fn(*args, **kw))
+        s["ms"] += ms
+        s["warm_ms"] += warm[fn]
         s["wrapper_ms"] += cuda_ms(lambda: fn(*args, **kw), iters=20)
         s["plain_ms"] += cuda_ms(lambda: tq.PLAIN[fn](*args, **kw), iters=3, warmup=1)
-        s["lib_ms"] += graph_ms(lib)
+        s["lib_ms"] += graph_ms(torch._int_mm, lib_args, cold=True)
+        s["lib_warm_ms"] += graph_ms(torch._int_mm, lib_args)
         s["ops"] += ops
         s["lib_ops"] += lib_ops
-        t_ops, t_bytes = ops / PEAK_INT8_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
-        s["bound_ms"] += max(t_ops, t_bytes)
+        s["bound_ms"] += bound
         s["ops_ms"] += t_ops
         s["bytes_ms"] += t_bytes
         shape = f"x{tuple(args[0].shape)} wt{tuple(args[1].shape)}"
-        print(f"[kernels] {fn.__name__:15s} {shape:28s} "
-              f"{ {k: v for k, v in kw.items() if k in ('px', 'px_map', 'h_in', 'stride', 'out_kind', 'relu')} } "
-              f"res={'residual' in kw and kw['residual'] is not None} max_err={err}")
+        opts = {k: v for k, v in kw.items()
+                if k in ("px", "px_map", "h_in", "stride", "out_kind", "relu")}
+        tile = ""
+        if fn in tq.MMA_CORE:
+            m, n = args[0].shape[0], args[1].shape[0]
+            k_seg = kw.get("c_in") or args[0].shape[1]
+            cfg = tq.sm90_config(m, n, k_seg, kw.get("px", 1), kw.get("out_kind", "int8"),
+                                 kw.get("residual") is not None)
+            tile = (f" tile {tq.SM90_BM}x{cfg.bn} stages {cfg.stages} smem {cfg.smem} "
+                    f"tiles {cfg.tiles} grid {min(n_sm, cfg.tiles)};"
+                    f" mma.sync {mma_ms:.5f} ms ({mma_ms / ms:.2f}x)")
+        print(f"[kernels] {fn.__name__:15s} {shape:28s} {opts} "
+              f"res={kw.get('residual') is not None} max_err={err};{tile} cold "
+              f"{ms:.5f} ms, warm {warm[fn]:.5f} ms, bound {bound:.5f} ms "
+              f"({'bytes' if t_bytes > t_ops else 'operations'}, "
+              f"{100 * bound / ms:.1f}%)")
     for fn, s in stats.items():
         check(s["calls"] > 0, f"{fn.__name__}: no call on the main path")
+        share = s["bound_ms"] / s["ms"]
+        check(share <= 1.0, f"{fn.__name__}: {100 * share:.1f}% of its bound")
+        core = (f"; mma.sync core {s['mma_ms']:.4f} ms cold / {s['mma_warm_ms']:.4f} "
+                f"warm in turns, {s['mma_wrapper_ms']:.4f} eager ({s['mma_ms'] / s['ms']:.2f}x "
+                f"the wgmma core's time; slowest call at {s['worst']:.2f}x the "
+                f"mma.sync core's)"
+                if fn in tq.MMA_CORE else "")
         print(f"[kernels] {fn.__name__}: {s['calls']} calls per image batch, "
-              f"{s['ops'] / 1e9:.3f} G int8 ops, "
-              f"max_abs_err {s['err']}, kernel {s['ms']:.4f} ms (CUDA graph; "
-              f"{s['wrapper_ms']:.4f} ms eager through the wrapper), plain "
-              f"{s['plain_ms']:.4f} ms, torch._int_mm {s['lib_ms']:.4f} ms "
-              f"(CUDA graph, {s['lib_ops'] / s['ops']:.2f}x the kernel's "
-              f"operations), bound {s['bound_ms']:.4f} ms "
-              f"({'bytes' if s['bytes_ms'] > s['ops_ms'] else 'operations'})")
+              f"{s['ops'] / 1e9:.3f} G int8 ops, max_abs_err {s['err']}, kernel "
+              f"{s['ms']:.4f} ms cold, {s['warm_ms']:.4f} ms warm (CUDA graphs; "
+              f"{s['wrapper_ms']:.4f} ms eager through the wrapper){core}, plain "
+              f"{s['plain_ms']:.4f} ms, torch._int_mm {s['lib_ms']:.4f} ms cold / "
+              f"{s['lib_warm_ms']:.4f} warm ({s['lib_ops'] / s['ops']:.2f}x the "
+              f"kernel's operations), bound {s['bound_ms']:.4f} ms "
+              f"({'bytes' if s['bytes_ms'] > s['ops_ms'] else 'operations'}; "
+              f"{100 * share:.1f}% of it, cold)")
     return stats
+
+
+def phase_seam(step, entry):
+    """The GEMM-land seam, ``q8_backend_forward`` on one captured entry
+    tensor, in a CUDA graph: on the wgmma core (the port's path) and with
+    its matmul and px calls on the mma.sync core, in turns."""
+    import torch
+
+    from cellsegmentation_tpu_torch.kernels import q8_gemm as tq
+    from cellsegmentation_tpu_torch.ops import q8_trunk
+
+    qp, metas = step.engine.qparams, step.engine.metas
+
+    def forward(x):
+        return q8_trunk.q8_backend_forward(qp, metas, x)
+
+    def forward_mma(x):
+        orig = q8_trunk.q8_matmul, q8_trunk.q8_matmul_px
+        q8_trunk.q8_matmul = tq.MMA_CORE[tq.q8_matmul]
+        q8_trunk.q8_matmul_px = tq.MMA_CORE[tq.q8_matmul_px]
+        try:
+            return q8_trunk.q8_backend_forward(qp, metas, x)
+        finally:
+            q8_trunk.q8_matmul, q8_trunk.q8_matmul_px = orig
+
+    with torch.no_grad():
+        check(torch.equal(forward(entry), forward_mma(entry)),
+              "the GEMM-land seam differs between the cores")
+        ms = _in_turns((forward, forward_mma), (entry,), {}, cold=False)
+    print(f"[seam] q8_backend_forward, entry {tuple(entry.shape)} int8 -> bf16, "
+          f"CUDA graph: wgmma core {ms[forward]:.4f} ms, mma.sync core "
+          f"{ms[forward_mma]:.4f} ms ({ms[forward_mma] / ms[forward]:.2f}x), in turns; "
+          f"outputs bit-identical")
+    return ms[forward]
 
 
 def _logodds(p):
@@ -716,6 +852,16 @@ def phase_profile(step, images):
           f"({100 * busy / wall:.1f}% of the step)")
     for ms, n, key in sorted(rows, reverse=True)[:15]:
         print(f"[profile] {ms:8.3f} ms {n:4d}x {key[:110]}")
+    # the GEMM kernels by name: the wgmma core's (q8_matmul and
+    # q8_matmul_px, 8 + 20 launches a step) and the mma.sync core's (the tap)
+    by_name = {}
+    for name in ("q8_wgmma_kernel", "q8_gemm_kernel"):
+        hits = [(t, n) for t, n, key in rows if name in key]
+        by_name[name] = (sum(t for t, _ in hits), sum(n for _, n in hits))
+        print(f"[profile] {name}: {by_name[name][1]} launches, "
+              f"{by_name[name][0]:.3f} ms ({100 * by_name[name][0] / busy:.1f}% of busy)")
+    check(by_name["q8_wgmma_kernel"][1] == 28 and by_name["q8_gemm_kernel"][1] == 1,
+          f"profiled launches by kernel {by_name}, want 28 wgmma and 1 mma.sync")
 
 
 def _coords(args):
@@ -785,6 +931,9 @@ def main(argv=None) -> int:
                   if c[0] is tq.q8_conv3_rowtap]
         stats = phase_kernels(calls)
 
+        phase = "seam"
+        phase_seam(step, entry)
+
         phase = "slice"
         launches, probs_auto, auto_ips = phase_slice(args, card, model, step, src)
 
@@ -812,13 +961,14 @@ def main(argv=None) -> int:
     for fn in tq.KERNELS:
         s = stats[fn]
         kernels.append({
-            "name": fn.__name__, "route": "cuda", "source": SOURCE,
+            "name": fn.__name__, "route": "cuda", "source": SOURCES[fn.__name__],
             "replaces": REPLACES[fn.__name__],
             "launches": launches[fn.__name__],
             "max_abs_err": s["err"], "ms": s["ms"], "plain_ms": s["plain_ms"],
             "bound_ms": s["bound_ms"],
             "bound_by": "bytes" if s["bytes_ms"] > s["ops_ms"] else "operations",
-            "library_ms": s["lib_ms"],
+            "library_ms": s["lib_ms"], "warm_ms": s["warm_ms"],
+            "mma_core_ms": s["mma_ms"] if fn in tq.MMA_CORE else None,
         })
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

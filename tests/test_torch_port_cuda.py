@@ -3,7 +3,7 @@
 Marked ``cuda``: without a card these tests skip (the kernels have no CPU
 mode). This file imports no JAX, so it runs on a machine with the card:
 
-    python -m pytest tests/test_torch_port_cuda.py -q
+    python -m pytest --noconftest tests/test_torch_port_cuda.py -q
 """
 
 from __future__ import annotations
@@ -15,6 +15,15 @@ import torch
 from cellsegmentation_tpu_torch.kernels import q8_gemm as tq
 
 SCALES = dict(in_scale=0.0123, res_scale=0.037, out_scale=0.91)
+# the row counts at the wgmma core's edges: one row, a consumer's 64 and
+# the tile's 128 either side, and the sweep's 32-image batch
+EDGE_M = (1, 63, 65, 127, 129, 7200)
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the kernels have no CPU mode")
+    return torch.device("cuda")
 
 
 def _ints(rng, shape):
@@ -27,14 +36,22 @@ def _epi_args(rng, n):
     return bias, ws
 
 
+def _assert_plain(got, want, what):
+    assert got.shape == want.shape and got.dtype == want.dtype, what
+    if got.dtype == torch.bfloat16:  # within 1 bf16 ulp
+        w = want.float()
+        ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(1e-30))) - 7)
+        assert bool(((got.float() - w).abs() <= ulp).all()), what
+    else:
+        assert torch.equal(got, want), what
+
+
 @pytest.mark.cuda
 def test_cuda_kernels_match_plain():
     """On the card: every wrapper launches its kernel (counted) and agrees
     with its plain version bit for bit at a trunk-like shape."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card; the kernels have no CPU mode")
+    dev = _card()
     rng = np.random.default_rng(5)
-    dev = torch.device("cuda")
     m, c, n = 450, 256, 256
     x = _ints(rng, (m, 16 * c)).to(dev)
     wt_px = _ints(rng, (n, c)).to(dev)
@@ -65,3 +82,91 @@ def test_cuda_kernels_match_plain():
         torch.cuda.synchronize()
         assert torch.equal(got, want), fn.__name__
     assert [f.launches for f in tq.KERNELS] == [2, 1, 1, 2]
+
+
+def _edge_cases(rng, m, dev):
+    """(wrapper, args, kwargs) at the trunk's matmul and px shapes: every
+    out_kind with and without residual and ReLU, both px_maps, C = 2048 and
+    N' = 2048."""
+
+    def w(n, k):
+        b, ws = _epi_args(rng, n)
+        return _ints(rng, (n, k)).to(dev), b.to(dev), ws.to(dev)
+
+    x1k = _ints(rng, (m, 1024)).to(dev)
+    x16 = _ints(rng, (m, 16 * 512)).to(dev)   # layer3 block0 input, 4x4 x 512
+    x4 = _ints(rng, (m, 4 * 1024)).to(dev)    # layer4 block0 input, 2x2 x 1024
+    x2k = _ints(rng, (m, 2048)).to(dev)       # layer4 block1 input, 1x1 x 2048
+    mm = w(1024, 1024)
+    r1k = _ints(rng, (m, 1024)).to(dev)
+    cases = [(tq.q8_matmul, (x1k, *mm), dict(out_kind=kind, residual=res,
+                                             relu=relu, **SCALES))
+             for kind, res, relu in (("int8", None, True), ("int8", r1k, False),
+                                     ("bf16", r1k, True), ("bf16", None, False),
+                                     ("int32", None, True))]
+    cases += [
+        (tq.q8_matmul, (x2k, *w(512, 2048)), dict(**SCALES)),
+        # layer3 block0: reduce px16, the strided projection (2, 4, 2)
+        (tq.q8_matmul_px, (x16, *w(256, 512)), dict(px=16, c_in=512, **SCALES)),
+        (tq.q8_matmul_px, (x16, *w(1024, 512)),
+         dict(px=4, c_in=512, px_map=(2, 4, 2), relu=False, **SCALES)),
+        # an expand with the residual, int8
+        (tq.q8_matmul_px, (_ints(rng, (m, 4 * 256)).to(dev), *w(1024, 256)),
+         dict(residual=_ints(rng, (m, 4096)).to(dev), px=4, c_in=256, **SCALES)),
+        # layer4 block0: the projection (2, 2, 1) to N' = 2048
+        (tq.q8_matmul_px, (x4, *w(2048, 1024)),
+         dict(px=1, c_in=1024, px_map=(2, 2, 1), relu=False, **SCALES)),
+        # C = 2048 reduce; the final expand, bf16 out with the residual
+        (tq.q8_matmul_px, (x2k, *w(512, 2048)), dict(px=1, c_in=2048, **SCALES)),
+        (tq.q8_matmul_px, (_ints(rng, (m, 512)).to(dev), *w(2048, 512)),
+         dict(residual=x2k, px=1, c_in=512, out_kind="bf16", **SCALES)),
+        (tq.q8_matmul_px, (_ints(rng, (m, 512)).to(dev), *w(2048, 512)),
+         dict(px=1, c_in=512, out_kind="bf16", relu=False, **SCALES)),
+    ]
+    return cases
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", EDGE_M)
+def test_wgmma_core_edges(m):
+    """q8_matmul and q8_matmul_px on the wgmma/TMA core against their plain
+    versions (int8/int32 exact, bf16 within 1 ulp) and bit for bit against
+    the mma.sync core, at ragged and full row counts; each launch counted,
+    the mma.sync core's not."""
+    dev = _card()
+    rng = np.random.default_rng(100 + m)
+    cases = _edge_cases(rng, m, dev)
+    tq.reset_launch_counts()
+    for fn, args, kw in cases:
+        got = fn(*args, **kw)
+        old = tq.MMA_CORE[fn](*args, **kw)
+        want = tq.PLAIN[fn](*args, **kw)
+        torch.cuda.synchronize()
+        what = f"{fn.__name__} m={m} wt{tuple(args[1].shape)} {kw.get('out_kind', 'int8')}"
+        _assert_plain(got, want, what)
+        assert torch.equal(got, old), what + " vs the mma.sync core"
+    n_mm = sum(fn is tq.q8_matmul for fn, _, _ in cases)
+    assert (tq.q8_matmul.launches, tq.q8_matmul_px.launches) == (n_mm, len(cases) - n_mm)
+
+
+@pytest.mark.cuda
+def test_wgmma_core_refuses_what_it_does_not_take():
+    """A call outside the core's tile rules raises before any launch."""
+    dev = _card()
+    rng = np.random.default_rng(7)
+    b, ws = (a.to(dev) for a in _epi_args(rng, 128))
+    x = _ints(rng, (8, 64)).to(dev)
+    tq.reset_launch_counts()
+    with pytest.raises(ValueError):  # K = 64: not a whole 128-byte stage
+        tq.q8_matmul(x, _ints(rng, (128, 64)).to(dev), b, ws)
+    with pytest.raises(ValueError):  # N = 64
+        tq.q8_matmul(_ints(rng, (8, 128)).to(dev), _ints(rng, (64, 128)).to(dev),
+                     b[:64].clone(), ws[:64].clone())
+    with pytest.raises(ValueError):  # C = 64 per pixel group
+        tq.q8_matmul_px(_ints(rng, (8, 256)).to(dev), _ints(rng, (128, 64)).to(dev),
+                        b, ws, px=4, c_in=64)
+    buf = _ints(rng, (8 * 128 + 16,)).to(dev)
+    with pytest.raises(ValueError):  # a contiguous x that TMA cannot address
+        tq.q8_matmul(buf[1:1 + 8 * 128].view(8, 128), _ints(rng, (128, 128)).to(dev),
+                     b, ws)
+    assert tq.q8_matmul.launches == 0 and tq.q8_matmul_px.launches == 0

@@ -1,7 +1,8 @@
 """The port stands alone and never hides a missing card.
 
 - No module of ``cellsegmentation_tpu_torch`` and no line of
-  ``chip_smoke.py`` imports ``jax``, ``flax`` or the JAX package.
+  ``chip_smoke.py`` or ``tools/sm90_tile_shapes.py`` imports ``jax``,
+  ``flax`` or the JAX package.
 - Entry points run on the CUDA card by default: without one they raise,
   unless the caller passes ``device="cpu"``.
 - ``chip_smoke.py`` without a card (or without the package beside it) exits
@@ -58,7 +59,7 @@ def _imported_roots(path: Path) -> list[tuple[int, str]]:
 
 def _port_files() -> list[Path]:
     files = sorted((ROOT / "cellsegmentation_tpu_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py"]
+    return files + [ROOT / "chip_smoke.py", ROOT / "tools" / "sm90_tile_shapes.py"]
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: p.relative_to(ROOT).as_posix())
