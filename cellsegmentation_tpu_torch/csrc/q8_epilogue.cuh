@@ -1,11 +1,11 @@
-// The int8 GEMM epilogue shared by both cores (q8_gemm.cu, q8_gemm_sm90.cu).
+// The int8 GEMM epilogue of the wgmma/TMA core (q8_gemm_sm90.cu).
 //
 // Bit-exact to the Pallas one (cellsegmentation_tpu/ops/q8_gemm.py:106-120):
 //   y = f32(acc) * (in_scale * w_scale[col]); y += bias[col];
 //   y += f32(res) * res_scale; y = relu(y);
 //   int8: clip(rint(y * inv_out), -127, 127)   bf16: RNE(y)   int32: acc
 // with every multiply and add rounded separately (__fmul_rn/__fadd_rn; the
-// libraries are also built with -fmad=false) and round-half-even.
+// library is also built with -fmad=false) and round-half-even.
 
 #pragma once
 
@@ -25,23 +25,13 @@ __device__ __forceinline__ float q8_epilogue_scaled(int acc, float scale, float 
   return y;
 }
 
-__device__ __forceinline__ float q8_epilogue(int acc, float ws, float b, float r, bool has_res,
-                                             float in_scale, float res_scale, bool relu) {
-  return q8_epilogue_scaled(acc, __fmul_rn(in_scale, ws), b, r, has_res, res_scale, relu);
-}
-
-// clip(rint(y * inv_out), -127, 127): the clip bounds are integers, so
-// clipping before the round-half-even conversion gives the same value.
-__device__ __forceinline__ int8_t q8_requant(float y, float inv_out) {
-  return static_cast<int8_t>(
-      __float2int_rn(fminf(fmaxf(__fmul_rn(y, inv_out), -127.0f), 127.0f)));
-}
-
-// Two requantized values as int8 in the low 16 bits, q(y0) in the low byte,
-// without the conversion unit (16 results a clock per SM on Hopper): after
-// the clip, adding 1.5 * 2^23 rounds half to even onto the integers (the
-// sum's ulp is 1), and the int8 is the low byte of the sum's bits. After a
-// ReLU (NONNEG) y >= 0, so the clip at -127 cannot bind and is left out.
+// Two requantized values, clip(rint(y * inv_out), -127, 127), as int8 in
+// the low 16 bits, q(y0) in the low byte; the clip bounds are integers, so
+// clipping before the rounding gives the same value. Without the conversion
+// unit (16 results a clock per SM on Hopper): after the clip, adding
+// 1.5 * 2^23 rounds half to even onto the integers (the sum's ulp is 1), and
+// the int8 is the low byte of the sum's bits. After a ReLU (NONNEG) y >= 0,
+// so the clip at -127 cannot bind and is left out.
 template <bool NONNEG>
 __device__ __forceinline__ uint16_t q8_requant2(float y0, float y1, float inv_out) {
   const float magic = 12582912.0f;  // 1.5 * 2^23

@@ -1,21 +1,37 @@
 // int8 GEMMs of the stage-2 serving trunk on Hopper's wgmma/TMA core (sm_90a).
 //
-// Replaces two Pallas TPU kernels of cellsegmentation_tpu/ops/q8_gemm.py
-// through one entry point, q8_gemm_sm90_launch:
-//   q8_matmul    / _mm_kernel  - the whole-tile Toeplitz 3x3 of layer3 blocks
-//                                1-5 and layer4: one pixel group, K segment = K;
-//   q8_matmul_px / _bmm_kernel - every layer-3/4 1x1 (reduce, strided
-//                                projection, expand with the residual fused):
-//                                per output pixel group p, x[:, g(p)*C : +C]
-//                                @ wt[N', C]^T into columns [p*N', (p+1)*N').
+// Replaces the four Pallas TPU kernels of cellsegmentation_tpu/ops/q8_gemm.py
+// through one entry point, q8_gemm_sm90_launch. Every call is a list of
+// output pixel groups; group p sums the products of its K segments, each a
+// pair (A column, B column) of k_seg bytes, into columns [p*N, (p+1)*N):
+//   q8_matmul       / _mm_kernel     - the whole-tile Toeplitz 3x3 of layer3
+//                                      blocks 1-5 and layer4: one group, one
+//                                      segment (0, 0) of K bytes;
+//   q8_matmul_px    / _bmm_kernel    - every layer-3/4 1x1 (reduce, strided
+//                                      projection, expand with the residual
+//                                      fused): one segment (g(p)*C, 0) of C;
+//   q8_conv3_tap    / _tap_kernel    - the 3x3 of layer3 block0: one segment
+//                                      ((hi*w_in + wi)*C, t*C) of C per
+//                                      in-range tap t of output pixel p;
+//   q8_conv3_rowtap / _rowtap_kernel - every layer-3/4 3x3 as row-Toeplitz
+//                                      dots: one segment (hi*w_in*C,
+//                                      dy*w_in*C) of w_in*C per in-range input
+//                                      row hi = stride*ho + dy - 1 of output
+//                                      row p = ho; bias and scale come tiled
+//                                      over wo, so the epilogue is the same.
+// The TPU kernels walk the taps or rows on a sequential grid axis with the
+// int32 sum in scratch memory; here they are the tile's K loop, and
+// out-of-range taps and rows are never loaded.
 //
 // What bounds them on the H100 (1979 TOP/s int8, 3.35 TB/s: ridge 590 op/B).
 // At M = 7,200 tile rows the reduces and expands move 1 byte per 100-500
 // operations (the expands read a residual and write as many bytes as the
-// reduces read): bytes bound them. The matmuls and the 2048-wide projection
-// do 1,000-4,000 operations per byte: operations bound them.
+// reduces read): bytes bound them. The matmuls, the 2048-wide projection and
+// the 3x3 convs on 2x2 and larger maps do 600-4,000 operations per byte:
+// operations bound them. The row-Toeplitz 3x3 on layer4's 1x1 map (about
+// 490) is bound by bytes.
 //
-// Design, against what held the mma.sync core (q8_gemm.cu) at 13-18% of bound:
+// Design:
 // - Instruction. wgmma.mma_async m64nNk32 s32.s8.s8 with both operands read
 //   from shared memory by descriptor: no fragment loads through registers.
 //   8-bit wgmma takes K-major operands only; A is x[M, K] and B is wt[N, K]
@@ -29,13 +45,24 @@
 //   stages (as many as shared memory holds beside the epilogue's buffers).
 //   The wgmma descriptors name the same swizzle; each k32 step advances the
 //   descriptor's start address by 32 bytes inside the 1024-byte swizzle atom.
-// - Persistent grid. One CTA per SM walks output tiles t = blockIdx.x + i *
-//   gridDim.x; the producer runs ahead into the next tile's stages while the
-//   consumers run the epilogue. Tiles are numbered with N innermost, then
-//   the pixel group, then M: the N' / BN tiles that read one A slab run on
-//   neighbouring CTAs at the same time, so A comes from device memory once
-//   and its re-reads hit L2. The pixel group's column g(p)*C (identity, or
-//   the strided projection's map) is only a TMA coordinate.
+// - Segments. The producer walks the tile's segments and each segment's
+//   128-byte stages; a segment's columns are only TMA coordinates. The ring
+//   runs on across segments and tiles, so a 256-byte tap segment costs no
+//   more than two stages of one long K. The consumers count the tile's
+//   k-blocks (segments x stages per segment) from the same table, and only
+//   the tile's first k-block overwrites the accumulator. The host builds
+//   the table (kernels/q8_gemm.py); it travels in the kernel's parameters
+//   (__grid_constant__, so an indexed read does not copy it to the stack),
+//   at most MAX_GROUPS groups and MAX_SEGS segments, 2.3 KB.
+// - Persistent grid. One CTA per SM walks output tiles; the producer runs
+//   ahead into the next tile's stages while the consumers run the epilogue.
+//   Tiles are numbered with N innermost, then the pixel group, then M: the
+//   N' / BN tiles that read one A slab run on neighbouring CTAs at the same
+//   time, so A comes from device memory once and its re-reads hit L2. CTA b
+//   takes tile i*grid + b in even rounds i and i*grid + grid-1-b in odd
+//   ones (a snake): the groups of a conv carry unequal K (the tap's four
+//   output pixels 8, 12, 12 and 18 stages), and the snake gives the CTA
+//   that drew a heavy group of one M tile a light group of another next.
 // - Epilogue. The accumulator fragment (rows 16*warp + lane/4 (+8), columns
 //   8j + 2*(lane%4) (+1)) goes through q8_epilogue.cuh in registers, is staged
 //   as int8, bf16 or int32 in shared memory in the TMA store's 128-byte
@@ -67,16 +94,22 @@ constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory a block may use
 constexpr int THREADS = 384;        // consumer warpgroups 0-1, producer warpgroup 2
 constexpr int A_BYTES = BM * BK;
 constexpr int SPAN = 64 * 128;      // one consumer's 64 rows of a 128-byte column span
+constexpr int MAX_GROUPS = 64;      // output pixel groups of one call
+constexpr int MAX_SEGS = 512;       // K segments of one call, all groups together
 
 struct Args {
   const float* bias;    // [N]
   const float* wscale;  // [N]
   int M, N;             // rows; output columns of one pixel group
-  int kblocks;          // K segment / BK
-  int px, n_tiles, tiles;
-  int c_in, map, stride, w_in, w_out;  // pixel group g(p): p, or the strided map
+  int kblocks;          // one K segment / BK
+  int groups, n_tiles, tiles;
   int has_res, relu, stages;
   float in_scale, res_scale, inv_out;
+  // The segment table: group p sums segments [first[p], first[p + 1]);
+  // segment s reads A columns from BK * (seg[s] & 0xFFFF) and B columns from
+  // BK * (seg[s] >> 16), k_seg = kblocks * BK bytes of each.
+  uint16_t first[MAX_GROUPS + 1];
+  uint32_t seg[MAX_SEGS];
 };
 
 __host__ __device__ constexpr int out_bytes(int out) {
@@ -142,6 +175,18 @@ __device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, 
 
 __device__ __forceinline__ void named_sync(int id) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
+}
+
+// This CTA's i-th output tile, in the snake over the grid; false past the last.
+__device__ __forceinline__ bool tile_at(const Args& a, int i, int bn, int& m0, int& p, int& n0) {
+  const int b = (i & 1) ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int t = i * gridDim.x + b;
+  if (t >= a.tiles) return false;
+  n0 = (t % a.n_tiles) * bn;
+  const int q = t / a.n_tiles;
+  p = q % a.groups;
+  m0 = (q / a.groups) * BM;
+  return true;
 }
 
 // K-major operand tile in 128-byte swizzle: rows of 128 bytes, 8-row atoms of
@@ -290,7 +335,7 @@ template <int BN, int OUT>
 __global__ void __launch_bounds__(THREADS, 1)
     q8_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_w,
                     const __grid_constant__ CUtensorMap tm_res,
-                    const __grid_constant__ CUtensorMap tm_out, const Args a) {
+                    const __grid_constant__ CUtensorMap tm_out, const __grid_constant__ Args a) {
   constexpr int OB = out_bytes(OUT);
   constexpr int STAGE = A_BYTES + BN * BK;
   constexpr int OUT_SPANS = BN * OB / 128;  // 128-byte column spans of an output tile
@@ -325,22 +370,22 @@ __global__ void __launch_bounds__(THREADS, 1)
     if (warp == 8 && lane == 0) {
       int stage = 0, rb = 0;
       uint32_t phase = 0, rphase = 0;
-      for (int t = blockIdx.x; t < a.tiles; t += gridDim.x) {
-        const int n0 = (t % a.n_tiles) * BN;
-        const int q = t / a.n_tiles;
-        const int p = q % a.px;
-        const int m0 = (q / a.px) * BM;
-        const int g = a.map ? a.stride * (p / a.w_out) * a.w_in + a.stride * (p % a.w_out) : p;
-        for (int kb = 0; kb < a.kblocks; ++kb) {
-          mbar_wait(empty_bar(bars, stage), phase ^ 1);
-          const uint32_t fb = full_bar(bars, stage);
-          const uint32_t dst = ring + stage * STAGE;
-          mbar_expect_tx(fb, STAGE);
-          tma_load(dst, &tm_x, fb, g * a.c_in + kb * BK, m0);
-          tma_load(dst + A_BYTES, &tm_w, fb, kb * BK, n0);
-          if (++stage == a.stages) {
-            stage = 0;
-            phase ^= 1;
+      int m0, p, n0;
+      for (int i = 0; tile_at(a, i, BN, m0, p, n0); ++i) {
+        for (int s = a.first[p]; s < a.first[p + 1]; ++s) {
+          const int ac = static_cast<int>(a.seg[s] & 0xFFFFu) * BK;
+          const int bc = static_cast<int>(a.seg[s] >> 16) * BK;
+          for (int kb = 0; kb < a.kblocks; ++kb) {
+            mbar_wait(empty_bar(bars, stage), phase ^ 1);
+            const uint32_t fb = full_bar(bars, stage);
+            const uint32_t dst = ring + stage * STAGE;
+            mbar_expect_tx(fb, STAGE);
+            tma_load(dst, &tm_x, fb, ac + kb * BK, m0);
+            tma_load(dst + A_BYTES, &tm_w, fb, bc + kb * BK, n0);
+            if (++stage == a.stages) {
+              stage = 0;
+              phase ^= 1;
+            }
           }
         }
         if (a.has_res) {
@@ -367,15 +412,13 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
 
-    for (int t = blockIdx.x; t < a.tiles; t += gridDim.x) {
-      const int n0 = (t % a.n_tiles) * BN;
-      const int q = t / a.n_tiles;
-      const int p = q % a.px;
-      const int m0 = (q / a.px) * BM;
-
+    int m0, p, n0;
+    for (int i = 0; tile_at(a, i, BN, m0, p, n0); ++i) {
+      // the producer loads this many k-blocks for the tile, in this order
+      const int nk = (a.first[p + 1] - a.first[p]) * a.kblocks;
       fence_regs<BN / 2>(acc);
       int prev = 0;
-      for (int kb = 0; kb < a.kblocks; ++kb) {
+      for (int kb = 0; kb < nk; ++kb) {
         mbar_wait(full_bar(bars, stage), phase);
         const uint32_t sa = ring + stage * STAGE + wg * (BM / 2) * BK;
         const uint32_t sb = ring + stage * STAGE + A_BYTES;
@@ -497,37 +540,44 @@ int launch(const CUtensorMap& mx, const CUtensorMap& mw, const CUtensorMap& mr,
 
 extern "C" {
 
-// out[M, px*N] group p = epilogue(x[:, g(p)*c_in : +c_in] @ wt[N, c_in]^T),
-// g(p) = p, or stride*(p / w_out)*w_in + stride*(p % w_out) when map_stride > 0;
-// a matmul is px = 1, c_in = lda = K. The tile shape (bn, stages) comes from
-// the caller. Returns 0, a cudaError_t, or -1 (a tile shape this core
-// refuses), -2 (no cuTensorMapEncodeTiled), -3 (a tensor map refused:
-// alignment or strides).
+// out[M, groups*N] group p = epilogue(sum over s in [first[p], first[p+1]) of
+// x[:, seg_a[s] : +k_seg] @ wt[:, seg_b[s] : +k_seg]^T), x [M, lda] and wt
+// [N, ldw] row-major; the columns are bytes. The tile shape (bn, stages)
+// comes from the caller. Returns 0, a cudaError_t, or -1 (a tile shape or
+// segment table this core refuses), -2 (no cuTensorMapEncodeTiled), -3 (a
+// tensor map refused: alignment or strides).
 int q8_gemm_sm90_launch(const void* x, const void* wt, const void* bias, const void* wscale,
-                        const void* res, void* out, int M, int N, int c_in, int lda, int px,
-                        int map_stride, int map_w_in, int map_w_out, float in_scale,
-                        float res_scale, float inv_out, int out_kind, int relu, int bn,
-                        int stages, void* stream) {
+                        const void* res, void* out, int M, int N, int lda, int ldw, int k_seg,
+                        int groups, const int* first, const int* seg_a, const int* seg_b,
+                        float in_scale, float res_scale, float inv_out, int out_kind, int relu,
+                        int bn, int stages, void* stream) {
   const int has_res = res != nullptr;
   if ((bn != 128 && bn != 256) || (bn == 256 && out_kind == OUT_INT32) || out_kind < 0 ||
-      out_kind > 2 || stages < 2 || stages > MAX_STAGES || M < 1 || px < 1 || c_in < BK ||
-      c_in % BK || N % bn || smem_bytes(bn, stages, has_res, out_kind) > SMEM_LIMIT)
+      out_kind > 2 || stages < 2 || stages > MAX_STAGES || M < 1 || groups < 1 ||
+      groups > MAX_GROUPS || k_seg < BK || k_seg % BK || N % bn || lda > 0xFFFF * BK ||
+      ldw > 0xFFFF * BK || smem_bytes(bn, stages, has_res, out_kind) > SMEM_LIMIT ||
+      first[0] != 0 || first[groups] > MAX_SEGS)
     return -1;
-  if (!encoder()) return -2;
   Args a = {};
+  for (int p = 0; p <= groups; ++p) {
+    if (p < groups && first[p + 1] <= first[p]) return -1;  // every group has a segment
+    a.first[p] = static_cast<uint16_t>(first[p]);
+  }
+  for (int s = 0; s < first[groups]; ++s) {
+    if (seg_a[s] < 0 || seg_a[s] % BK || seg_a[s] + k_seg > lda || seg_b[s] < 0 ||
+        seg_b[s] % BK || seg_b[s] + k_seg > ldw)
+      return -1;
+    a.seg[s] = static_cast<uint32_t>(seg_a[s] / BK) | (static_cast<uint32_t>(seg_b[s] / BK) << 16);
+  }
+  if (!encoder()) return -2;
   a.bias = static_cast<const float*>(bias);
   a.wscale = static_cast<const float*>(wscale);
   a.M = M;
   a.N = N;
-  a.kblocks = c_in / BK;
-  a.px = px;
+  a.kblocks = k_seg / BK;
+  a.groups = groups;
   a.n_tiles = N / bn;
-  a.tiles = ((M + BM - 1) / BM) * px * a.n_tiles;
-  a.c_in = c_in;
-  a.map = map_stride > 0;
-  a.stride = map_stride;
-  a.w_in = map_w_in;
-  a.w_out = map_w_out;
+  a.tiles = ((M + BM - 1) / BM) * groups * a.n_tiles;
   a.has_res = has_res;
   a.relu = relu;
   a.stages = stages;
@@ -541,9 +591,9 @@ int q8_gemm_sm90_launch(const void* x, const void* wt, const void* bias, const v
   CUtensorMap mx, mw, mr, mo;
   memset(&mr, 0, sizeof(mr));
   if (!make_map(&mx, x, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, lda, M, BK, BM) ||
-      !make_map(&mw, wt, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, c_in, N, BK, bn) ||
-      !make_map(&mo, out, out_type[out_kind], ob, px * N, M, 128 / ob, BM / 2) ||
-      (has_res && !make_map(&mr, res, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, px * N, M, 128, BM)))
+      !make_map(&mw, wt, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, ldw, N, BK, bn) ||
+      !make_map(&mo, out, out_type[out_kind], ob, groups * N, M, 128 / ob, BM / 2) ||
+      (has_res && !make_map(&mr, res, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, groups * N, M, 128, BM)))
     return -3;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bn == 256) {

@@ -2,19 +2,18 @@
 the compute primitive of the stage-2 serving trunk (ops/q8_trunk.py).
 
 Four wrappers, each the counterpart of one Pallas TPU kernel of
-``cellsegmentation_tpu/ops/q8_gemm.py``, on one of two int8 cores (see the
-source notes):
+``cellsegmentation_tpu/ops/q8_gemm.py``, all on the wgmma/TMA core of
+``csrc/q8_gemm_sm90.cu`` (see its source notes):
 
-- ``q8_matmul``        <- ``q8_matmul`` (``_mm_kernel``)        wgmma/TMA core,
-- ``q8_matmul_px``     <- ``q8_matmul_px`` (``_bmm_kernel``)    ``csrc/q8_gemm_sm90.cu``
-- ``q8_conv3_tap``     <- ``q8_conv3_tap`` (``_tap_kernel``)      mma.sync core,
-- ``q8_conv3_rowtap``  <- ``q8_conv3_rowtap`` (``_rowtap_kernel``) ``csrc/q8_gemm.cu``
+- ``q8_matmul``        <- ``q8_matmul`` (``_mm_kernel``)
+- ``q8_matmul_px``     <- ``q8_matmul_px`` (``_bmm_kernel``)
+- ``q8_conv3_tap``     <- ``q8_conv3_tap`` (``_tap_kernel``)
+- ``q8_conv3_rowtap``  <- ``q8_conv3_rowtap`` (``_rowtap_kernel``)
 
-The wgmma core's tile shape is chosen here (``sm90_config``) and passed to
-its C entry. The mma.sync core's own matmul and px paths stay reachable as
-the private ``_q8_matmul_mma`` and ``_q8_matmul_px_mma`` (``MMA_CORE``): a
-same-run yardstick for ``chip_smoke.py`` and the card test, never called by
-the port's main path.
+The core sees every call as a table of K segments per output pixel group
+(``KSegments``), which is built here from ``px_groups``, ``tap_table`` and
+``rowtap_rows``; its tile shape is chosen here too (``sm90_config``). Both
+are passed to its C entry.
 
 Weights are taken TRANSPOSED, ``wt [N, K]`` (K contiguous), which is what
 the kernel's B fragments read; the engine transposes the packed ``[K, N]``
@@ -44,12 +43,12 @@ import torch
 
 _OUT_KINDS = {"int8": (0, torch.int8), "bf16": (1, torch.bfloat16),
               "int32": (2, torch.int32)}
-# the mma.sync core (q8_gemm.cu): N must tile by 128, every K segment by 64
-MMA_BN, MMA_BK = 128, 64
-# the wgmma/TMA core (q8_gemm_sm90.cu): 128-row tiles, 128-byte K stages;
-# the constants mirror the source's
+# the wgmma/TMA core (q8_gemm_sm90.cu): 128-row tiles, 128-byte K stages,
+# a segment table of at most 64 groups and 512 segments; the constants
+# mirror the source's
 SM90_BM, SM90_BK = 128, 128
 SM90_MAX_STAGES = 6
+SM90_MAX_GROUPS, SM90_MAX_SEGS = 64, 512
 SM90_SMEM_LIMIT = 232448  # dynamic shared memory a Hopper block may use
 H100_SMS = 132
 _OUT_BYTES = {"int8": 1, "bf16": 2, "int32": 4}
@@ -189,15 +188,61 @@ def q8_conv3_rowtap_plain(x, wt, bias, w_scale, h_in=0, w_in=0, stride=1,
 
 
 # ---------------------------------------------------------------------------
-# the wgmma core's tile shape and tile order (mirrors q8_gemm_sm90.cu)
+# the wgmma core's segment tables, tile shape and tile order (mirrors
+# q8_gemm_sm90.cu)
 # ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class KSegments:
+    """One call as the wgmma core sees it: output pixel group p is the sum
+    over ``groups[p]``'s segments (a, b) of ``x[:, a : a + k_seg] @
+    wt[:, b : b + k_seg]^T``; a, b and ``k_seg`` are bytes (int8 columns).
+    The segments of a group are in the plain version's K order."""
+
+    k_seg: int
+    groups: tuple  # per output group, a tuple of (a, b) pairs
+
+    @property
+    def px(self) -> int:
+        return len(self.groups)
+
+
+@functools.lru_cache(maxsize=None)
+def matmul_segments(k: int) -> KSegments:
+    return KSegments(k, (((0, 0),),))
+
+
+@functools.lru_cache(maxsize=None)
+def px_segments(px: int, c_in: int, px_map=None) -> KSegments:
+    """Group p reads input pixel group g(p) (``px_groups``)."""
+    return KSegments(c_in, tuple(((g * c_in, 0),) for g in px_groups(px, px_map)))
+
+
+@functools.lru_cache(maxsize=None)
+def tap_segments(h_in: int, w_in: int, stride: int, c_in: int) -> KSegments:
+    """Output pixel p: one segment per in-range tap t at input pixel gi
+    (``tap_table``), the pixel's C channels against tap t's weight rows."""
+    table, _, _ = tap_table(h_in, w_in, stride)
+    return KSegments(c_in, tuple(tuple((gi * c_in, t * c_in) for t, gi in taps)
+                                 for taps in table))
+
+
+@functools.lru_cache(maxsize=None)
+def rowtap_segments(h_in: int, w_in: int, stride: int, c_in: int) -> KSegments:
+    """Output row ho: one segment per in-range input row hi (``rowtap_rows``),
+    the whole row against the dy-th row-Toeplitz weight plane."""
+    k_row = w_in * c_in
+    return KSegments(k_row, tuple(tuple((hi * k_row, dy * k_row) for dy, hi in rows)
+                                  for rows in rowtap_rows(h_in, stride)))
 
 
 @dataclasses.dataclass(frozen=True)
 class Sm90Config:
     """One call's tile shape on the wgmma core: BN output columns by
     ``SM90_BM`` rows per tile, ``stages`` ring stages, ``smem`` bytes of
-    dynamic shared memory; tiles number (M tile, pixel group, N tile)."""
+    dynamic shared memory; tiles number (M tile, pixel group, N tile), and
+    a tile of group p runs ``kblocks[p]`` ring stages."""
 
     bn: int
     stages: int
@@ -205,6 +250,7 @@ class Sm90Config:
     px: int
     n_tiles: int
     smem: int
+    kblocks: tuple
 
     @property
     def tiles(self) -> int:
@@ -228,42 +274,58 @@ def sm90_stages(bn: int, has_res: bool, out_kind: str) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def sm90_config(m: int, n: int, k_seg: int, px: int, out_kind: str,
+def sm90_config(m: int, n: int, segs: KSegments, out_kind: str,
                 has_res: bool) -> Sm90Config:
     """The wgmma core's tile shape for one call (M rows, N output columns
-    per pixel group, a K segment per group, px groups), or ValueError for a
-    call it does not take.
+    per pixel group, the groups' K segments), or ValueError for a call it
+    does not take.
 
     BN = 256 halves the B bytes read from shared memory per operation and
     the epilogue's per-tile overhead; it is taken where its ring holds the
-    tile's whole K segment or at least three stages beside the epilogue's
-    buffers (fewer expose the loads' latency), else BN = 128. The ring
-    takes as many stages as shared memory holds, up to SM90_MAX_STAGES."""
+    whole K of the call's longest tile or at least three stages beside the
+    epilogue's buffers (fewer expose the loads' latency), else BN = 128.
+    The ring takes as many stages as shared memory holds, up to
+    SM90_MAX_STAGES."""
     if out_kind not in _OUT_BYTES:
         raise ValueError(f"out_kind must be one of {list(_OUT_BYTES)}")
-    if m < 1 or px < 1 or k_seg < SM90_BK or k_seg % SM90_BK or n % 128:
+    k_seg = segs.k_seg
+    if m < 1 or k_seg < SM90_BK or k_seg % SM90_BK or n % 128:
         raise ValueError(
             f"the wgmma core needs M >= 1, K % {SM90_BK} == 0 per segment and "
             f"N % 128 == 0, got M={m}, K={k_seg}, N={n}")
+    n_segs = sum(len(g) for g in segs.groups)
+    if not 1 <= segs.px <= SM90_MAX_GROUPS or n_segs > SM90_MAX_SEGS:
+        raise ValueError(
+            f"the wgmma core's segment table holds 1..{SM90_MAX_GROUPS} groups "
+            f"and {SM90_MAX_SEGS} segments, got {segs.px} and {n_segs}")
+    if (not all(segs.groups)
+            or any(a % SM90_BK or b % SM90_BK for g in segs.groups for a, b in g)):
+        raise ValueError(f"every group needs a segment, each at columns that "
+                         f"are multiples of {SM90_BK} bytes")
+    kblocks = tuple(len(g) * k_seg // SM90_BK for g in segs.groups)
     bn = 128
     if (n % 256 == 0 and out_kind != "int32"
-            and sm90_stages(256, has_res, out_kind) >= min(3, k_seg // SM90_BK)):
+            and sm90_stages(256, has_res, out_kind) >= min(3, max(kblocks))):
         bn = 256
     stages = sm90_stages(bn, has_res, out_kind)
     if stages < 2:
         raise ValueError("the wgmma core has no ring that fits this call")
-    return Sm90Config(bn, stages, -(-m // SM90_BM), px, n // bn,
-                      sm90_smem(bn, stages, has_res, out_kind))
+    return Sm90Config(bn, stages, -(-m // SM90_BM), segs.px, n // bn,
+                      sm90_smem(bn, stages, has_res, out_kind), kblocks)
 
 
 def sm90_tile_order(cfg: Sm90Config, n_sm: int = H100_SMS):
     """Per CTA of the persistent grid, the (M tile, pixel group, N tile) it
-    computes, in order: CTA b takes tiles b, b + grid, ... with N innermost."""
+    computes, in order. Tiles t number with N innermost; in round i CTA b
+    takes t = i*grid + b for even i and i*grid + grid-1-b for odd i."""
     grid = min(n_sm, cfg.tiles)
     order = []
     for b in range(grid):
         mine = []
-        for t in range(b, cfg.tiles, grid):
+        for i in range(-(-cfg.tiles // grid)):
+            t = i * grid + (grid - 1 - b if i % 2 else b)
+            if t >= cfg.tiles:
+                break
             q = t // cfg.n_tiles
             mine.append((q // cfg.px, q % cfg.px, t % cfg.n_tiles))
         order.append(mine)
@@ -276,33 +338,41 @@ def sm90_tile_order(cfg: Sm90Config, n_sm: int = H100_SMS):
 
 
 @functools.lru_cache(maxsize=None)
-def _lib():
-    from cellsegmentation_tpu_torch.kernels import build
-
-    lib = build.load("q8_gemm.cu")
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.q8_matmul_mma_launch.argtypes = [p, p, p, p, p, p, i, i, i, f, f, f, i, i, p]
-    lib.q8_matmul_px_mma_launch.argtypes = [
-        p, p, p, p, p, p, i, i, i, i, i, i, i, i, f, f, f, i, i, p]
-    lib.q8_conv3_tap_launch.argtypes = [
-        p, p, p, p, p, i, i, i, i, i, i, f, f, i, i, p]
-    lib.q8_conv3_rowtap_launch.argtypes = lib.q8_conv3_tap_launch.argtypes
-    for fn in (lib.q8_matmul_mma_launch, lib.q8_matmul_px_mma_launch,
-               lib.q8_conv3_tap_launch, lib.q8_conv3_rowtap_launch):
-        fn.restype = ctypes.c_int
-    return lib
-
-
-@functools.lru_cache(maxsize=None)
 def _lib_sm90():
     from cellsegmentation_tpu_torch.kernels import build
 
     lib = build.load("q8_gemm_sm90.cu")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.q8_gemm_sm90_launch.argtypes = [
-        p, p, p, p, p, p, i, i, i, i, i, i, i, i, f, f, f, i, i, i, i, p]
+        p, p, p, p, p, p, i, i, i, i, i, i, p, p, p, f, f, f, i, i, i, i, p]
     lib.q8_gemm_sm90_launch.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _c_table(segs: KSegments):
+    """The segment table as the C entry takes it: int arrays first[px + 1]
+    (group p's segments are [first[p], first[p + 1])), seg_a and seg_b."""
+    first, seg_a, seg_b = [0], [], []
+    for g in segs.groups:
+        seg_a += [a for a, _ in g]
+        seg_b += [b for _, b in g]
+        first.append(len(seg_a))
+    return tuple((ctypes.c_int * len(v))(*v) for v in (first, seg_a, seg_b))
+
+
+def _sm90_run(x, wt, bias, w_scale, residual, out, segs, out_kind, in_scale,
+              res_scale, out_scale, relu, bn, stages) -> int:
+    """One launch of the wgmma/TMA core into ``out`` at the tile shape (bn,
+    stages); returns the C entry's code."""
+    first, seg_a, seg_b = _c_table(segs)
+    return _lib_sm90().q8_gemm_sm90_launch(
+        x.data_ptr(), wt.data_ptr(), bias.data_ptr(), w_scale.data_ptr(),
+        _ptr(residual), out.data_ptr(), x.shape[0], wt.shape[0], x.shape[1],
+        wt.shape[1], segs.k_seg, segs.px, first, seg_a, seg_b, in_scale,
+        res_scale, 1.0 / out_scale, _OUT_KINDS[out_kind][0], int(relu), bn,
+        stages, _stream(x),
+    )
 
 
 def _px_c_in(x, px, c_in, px_map):
@@ -345,13 +415,6 @@ def _check(name, x, wt, bias, w_scale, residual, out_kind):
         raise ValueError(f"{name}: unsupported device {dev}")
 
 
-def _mma_rules(name, n, k_seg):
-    if n % MMA_BN or k_seg % MMA_BK:
-        raise ValueError(
-            f"{name}: the mma.sync kernel needs N % {MMA_BN} == 0 and K % "
-            f"{MMA_BK} == 0 per segment, got N={n}, K={k_seg}")
-
-
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
@@ -365,18 +428,44 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _matmul_shapes(x, wt, bias, w_scale, residual, out_kind):
+def _sm90_launch(name, x, wt, bias, w_scale, residual, segs, out_kind,
+                 in_scale, res_scale, out_scale, relu):
+    """[M, px*N] = one call of the wgmma/TMA core, at sm90_config's shape."""
+    m, n = x.shape[0], wt.shape[0]
+    cfg = sm90_config(m, n, segs, out_kind, residual is not None)
+    out = torch.empty((m, segs.px * n), dtype=_OUT_KINDS[out_kind][1],
+                      device=x.device)
+    _raise_on(name, _sm90_run(x, wt, bias, w_scale, residual, out, segs,
+                              out_kind, in_scale, res_scale, out_scale, relu,
+                              cfg.bn, cfg.stages))
+    return out
+
+
+def q8_matmul(x, wt, bias, w_scale, residual=None, out_kind="int8",
+              in_scale=1.0, res_scale=1.0, out_scale=1.0, relu=True):
+    """epilogue(x_i8 [M, K] @ wt_i8 [N, K]^T) -> [M, N] int8 | bf16 | int32."""
     m, k = x.shape
-    n = wt.shape[0]
     _check("q8_matmul", x, wt, bias, w_scale, residual, out_kind)
     if wt.shape[1] != k:
         raise ValueError(f"q8_matmul: wt is {tuple(wt.shape)}, want [N, {k}]")
-    if residual is not None and residual.shape != (m, n):
-        raise ValueError(f"q8_matmul: residual must be [{m}, {n}]")
-    return m, k, n
+    if residual is not None and residual.shape != (m, wt.shape[0]):
+        raise ValueError(f"q8_matmul: residual must be [{m}, {wt.shape[0]}]")
+    if x.device.type == "cpu":
+        return q8_matmul_plain(x, wt, bias, w_scale, residual, out_kind,
+                               in_scale, res_scale, out_scale, relu)
+    out = _sm90_launch("q8_matmul", x, wt, bias, w_scale, residual,
+                       matmul_segments(k), out_kind, in_scale, res_scale,
+                       out_scale, relu)
+    q8_matmul.launches += 1
+    return out
 
 
-def _px_shapes(x, wt, bias, w_scale, residual, px, c_in, px_map, out_kind):
+def q8_matmul_px(x, wt, bias, w_scale, residual=None, px=1, c_in=0,
+                 px_map=None, out_kind="int8", in_scale=1.0, res_scale=1.0,
+                 out_scale=1.0, relu=True):
+    """Per-pixel 1x1 conv on the whole-tile layout: for each output pixel
+    group p, epilogue(x[:, g(p)*c_in : +c_in] @ wt [N', c_in]^T) lands in
+    columns [p*N', (p+1)*N') of the [M, px*N'] output."""
     m = x.shape[0]
     c_in = _px_c_in(x, px, c_in, px_map)
     n = wt.shape[0]
@@ -389,93 +478,14 @@ def _px_shapes(x, wt, bias, w_scale, residual, px, c_in, px_map, out_kind):
         raise ValueError("q8_matmul_px: px/px_map read past x's pixel groups")
     if residual is not None and residual.shape != (m, px * n):
         raise ValueError(f"q8_matmul_px: residual must be [{m}, {px * n}]")
-    return m, c_in, n
-
-
-def _sm90_launch(name, x, wt, bias, w_scale, residual, m, n, c_in, px, px_map,
-                 out_kind, in_scale, res_scale, out_scale, relu):
-    """[M, px*N] = one call of the wgmma/TMA core, at sm90_config's shape."""
-    cfg = sm90_config(m, n, c_in, px, out_kind, residual is not None)
-    kind, dtype = _OUT_KINDS[out_kind]
-    stride, w_in, w_out = px_map if px_map is not None else (0, 0, 0)
-    out = torch.empty((m, px * n), dtype=dtype, device=x.device)
-    err = _lib_sm90().q8_gemm_sm90_launch(
-        x.data_ptr(), wt.data_ptr(), bias.data_ptr(), w_scale.data_ptr(),
-        _ptr(residual), out.data_ptr(), m, n, c_in, x.shape[1], px, stride,
-        w_in, w_out, in_scale, res_scale, 1.0 / out_scale, kind, int(relu),
-        cfg.bn, cfg.stages, _stream(x),
-    )
-    _raise_on(name, err)
-    return out
-
-
-def q8_matmul(x, wt, bias, w_scale, residual=None, out_kind="int8",
-              in_scale=1.0, res_scale=1.0, out_scale=1.0, relu=True):
-    """epilogue(x_i8 [M, K] @ wt_i8 [N, K]^T) -> [M, N] int8 | bf16 | int32."""
-    m, k, n = _matmul_shapes(x, wt, bias, w_scale, residual, out_kind)
-    if x.device.type == "cpu":
-        return q8_matmul_plain(x, wt, bias, w_scale, residual, out_kind,
-                               in_scale, res_scale, out_scale, relu)
-    out = _sm90_launch("q8_matmul", x, wt, bias, w_scale, residual, m, n, k,
-                       1, None, out_kind, in_scale, res_scale, out_scale, relu)
-    q8_matmul.launches += 1
-    return out
-
-
-def q8_matmul_px(x, wt, bias, w_scale, residual=None, px=1, c_in=0,
-                 px_map=None, out_kind="int8", in_scale=1.0, res_scale=1.0,
-                 out_scale=1.0, relu=True):
-    """Per-pixel 1x1 conv on the whole-tile layout: for each output pixel
-    group p, epilogue(x[:, g(p)*c_in : +c_in] @ wt [N', c_in]^T) lands in
-    columns [p*N', (p+1)*N') of the [M, px*N'] output."""
-    m, c_in, n = _px_shapes(x, wt, bias, w_scale, residual, px, c_in, px_map,
-                            out_kind)
     if x.device.type == "cpu":
         return q8_matmul_px_plain(x, wt, bias, w_scale, residual, px, c_in,
                                   px_map, out_kind, in_scale, res_scale,
                                   out_scale, relu)
-    out = _sm90_launch("q8_matmul_px", x, wt, bias, w_scale, residual, m, n,
-                       c_in, px, px_map, out_kind, in_scale, res_scale,
-                       out_scale, relu)
+    segs = px_segments(px, c_in, None if px_map is None else tuple(px_map))
+    out = _sm90_launch("q8_matmul_px", x, wt, bias, w_scale, residual, segs,
+                       out_kind, in_scale, res_scale, out_scale, relu)
     q8_matmul_px.launches += 1
-    return out
-
-
-def _q8_matmul_mma(x, wt, bias, w_scale, residual=None, out_kind="int8",
-                   in_scale=1.0, res_scale=1.0, out_scale=1.0, relu=True):
-    """``q8_matmul`` on the mma.sync core (q8_gemm.cu), CUDA tensors only,
-    not counted: the same-run yardstick of the wgmma core."""
-    m, k, n = _matmul_shapes(x, wt, bias, w_scale, residual, out_kind)
-    _mma_rules("q8_matmul", n, k)
-    kind, dtype = _OUT_KINDS[out_kind]
-    out = torch.empty((m, n), dtype=dtype, device=x.device)
-    err = _lib().q8_matmul_mma_launch(
-        x.data_ptr(), wt.data_ptr(), bias.data_ptr(), w_scale.data_ptr(),
-        _ptr(residual), out.data_ptr(), m, n, k, in_scale, res_scale,
-        1.0 / out_scale, kind, int(relu), _stream(x),
-    )
-    _raise_on("q8_matmul", err)
-    return out
-
-
-def _q8_matmul_px_mma(x, wt, bias, w_scale, residual=None, px=1, c_in=0,
-                      px_map=None, out_kind="int8", in_scale=1.0,
-                      res_scale=1.0, out_scale=1.0, relu=True):
-    """``q8_matmul_px`` on the mma.sync core (q8_gemm.cu), CUDA tensors
-    only, not counted: the same-run yardstick of the wgmma core."""
-    m, c_in, n = _px_shapes(x, wt, bias, w_scale, residual, px, c_in, px_map,
-                            out_kind)
-    _mma_rules("q8_matmul_px", n, c_in)
-    kind, dtype = _OUT_KINDS[out_kind]
-    stride, w_in, w_out = px_map if px_map is not None else (0, 0, 0)
-    out = torch.empty((m, px * n), dtype=dtype, device=x.device)
-    err = _lib().q8_matmul_px_mma_launch(
-        x.data_ptr(), wt.data_ptr(), bias.data_ptr(), w_scale.data_ptr(),
-        _ptr(residual), out.data_ptr(), m, n, c_in, x.shape[1], px,
-        stride, w_in, w_out, in_scale, res_scale, 1.0 / out_scale, kind,
-        int(relu), _stream(x),
-    )
-    _raise_on("q8_matmul_px", err)
     return out
 
 
@@ -486,8 +496,6 @@ def q8_conv3_tap(x, wt, bias, w_scale, h_in=0, w_in=0, stride=1, c_in=0,
     tap-major ``wt [C', 9*C]``, column (dy*3+dx)*C + ci."""
     if not (h_in and w_in and c_in):
         raise ValueError("q8_conv3_tap: h_in, w_in and c_in are required")
-    m = x.shape[0]
-    n = wt.shape[0]
     if out_kind == "int32":
         raise ValueError("q8_conv3_tap: out_kind must be int8 or bf16")
     _check("q8_conv3_tap", x, wt, bias, w_scale, None, out_kind)
@@ -496,17 +504,9 @@ def q8_conv3_tap(x, wt, bias, w_scale, h_in=0, w_in=0, stride=1, c_in=0,
     if x.device.type == "cpu":
         return q8_conv3_tap_plain(x, wt, bias, w_scale, h_in, w_in, stride,
                                   c_in, out_kind, in_scale, out_scale, relu)
-    _mma_rules("q8_conv3_tap", n, c_in)
-    kind, dtype = _OUT_KINDS[out_kind]
-    _, h_out, w_out = tap_table(h_in, w_in, stride)
-    out = torch.empty((m, h_out * w_out * n), dtype=dtype, device=x.device)
-    err = _lib().q8_conv3_tap_launch(
-        x.data_ptr(), wt.data_ptr(), bias.data_ptr(), w_scale.data_ptr(),
-        out.data_ptr(), m, n, c_in, h_in, w_in, stride, in_scale,
-        1.0 / out_scale, kind, int(relu),
-        _stream(x),
-    )
-    _raise_on("q8_conv3_tap", err)
+    out = _sm90_launch("q8_conv3_tap", x, wt, bias, w_scale, None,
+                       tap_segments(h_in, w_in, stride, c_in), out_kind,
+                       in_scale, 1.0, out_scale, relu)
     q8_conv3_tap.launches += 1
     return out
 
@@ -520,8 +520,6 @@ def q8_conv3_rowtap(x, wt, bias, w_scale, h_in=0, w_in=0, stride=1, c_in=0,
     columns ``[ho*N, (ho+1)*N)``, N = w_out*C'."""
     if not (h_in and w_in and c_in):
         raise ValueError("q8_conv3_rowtap: h_in, w_in and c_in are required")
-    m = x.shape[0]
-    n = wt.shape[0]
     k_row = w_in * c_in
     if out_kind == "int32":
         raise ValueError("q8_conv3_rowtap: out_kind must be int8 or bf16")
@@ -529,22 +527,14 @@ def q8_conv3_rowtap(x, wt, bias, w_scale, h_in=0, w_in=0, stride=1, c_in=0,
     if x.shape[1] != h_in * k_row or wt.shape[1] != 3 * k_row:
         raise ValueError("q8_conv3_rowtap: x must be [M, h_in*w_in*c_in] and "
                          "wt [N, 3*w_in*c_in]")
-    if n % ((w_in - 1) // stride + 1):
+    if wt.shape[0] % ((w_in - 1) // stride + 1):
         raise ValueError("q8_conv3_rowtap: N must be w_out*c_out")
     if x.device.type == "cpu":
         return q8_conv3_rowtap_plain(x, wt, bias, w_scale, h_in, w_in, stride,
                                      c_in, out_kind, in_scale, out_scale, relu)
-    _mma_rules("q8_conv3_rowtap", n, k_row)
-    kind, dtype = _OUT_KINDS[out_kind]
-    h_out = (h_in - 1) // stride + 1
-    out = torch.empty((m, h_out * n), dtype=dtype, device=x.device)
-    err = _lib().q8_conv3_rowtap_launch(
-        x.data_ptr(), wt.data_ptr(), bias.data_ptr(), w_scale.data_ptr(),
-        out.data_ptr(), m, n, c_in, h_in, w_in, stride, in_scale,
-        1.0 / out_scale, kind, int(relu),
-        _stream(x),
-    )
-    _raise_on("q8_conv3_rowtap", err)
+    out = _sm90_launch("q8_conv3_rowtap", x, wt, bias, w_scale, None,
+                       rowtap_segments(h_in, w_in, stride, c_in), out_kind,
+                       in_scale, 1.0, out_scale, relu)
     q8_conv3_rowtap.launches += 1
     return out
 
@@ -553,8 +543,6 @@ KERNELS = (q8_matmul, q8_matmul_px, q8_conv3_tap, q8_conv3_rowtap)
 PLAIN = {q8_matmul: q8_matmul_plain, q8_matmul_px: q8_matmul_px_plain,
          q8_conv3_tap: q8_conv3_tap_plain,
          q8_conv3_rowtap: q8_conv3_rowtap_plain}
-# the mma.sync core's matmul and px paths, for the same-run comparison only
-MMA_CORE = {q8_matmul: _q8_matmul_mma, q8_matmul_px: _q8_matmul_px_mma}
 for _fn in KERNELS:
     _fn.launches = 0
 

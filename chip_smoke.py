@@ -6,34 +6,33 @@ ResNet-50 MILNet on 299^2 images (32-px tiles, interval 20, 225 tiles per
 image), with seeded random weights and seeded synthetic LYSTO images:
 
 1. device: the card's name and power limit, the TF32 flags;
-2. build: csrc/q8_gemm.cu (the mma.sync core) and csrc/q8_gemm_sm90.cu (the
-   wgmma/TMA core), one nvcc each, started together, with the ptxas report;
+2. build: csrc/q8_gemm_sm90.cu, the wgmma/TMA core of all four kernels,
+   with the ptxas report;
 3. kernels: every int8 GEMM call of one sweep step, captured at its real
    shape and data (the auto-form engine's, and the 9 row-Toeplitz 3x3s of
    an engine built with ``w2_impl="rowtap"``), run through its CUDA kernel
-   and its plain PyTorch version (int8/int32 exact, bf16 within 1 ulp);
-   q8_matmul and q8_matmul_px also through the mma.sync core, which they
-   must match bit for bit. Each call timed in CUDA graphs with cold
-   operands (copies rotated past twice L2) and warm, the wgmma and mma.sync
-   cores in turns, beside ``torch._int_mm`` on the same GEMM and the card's
-   bound for the work, which no time may beat; then the GEMM-land seam
-   (``q8_backend_forward``) on one captured entry tensor, on both cores;
+   and its plain PyTorch version (int8/int32 exact, bf16 within 1 ulp).
+   Each call timed in CUDA graphs with cold operands (copies rotated past
+   twice L2) and warm, beside ``torch._int_mm`` on the same GEMM (and
+   cuDNN's bf16 conv for the 3x3s) and the card's bound for the work, which
+   no time may beat; each 3x3 of the auto form beside its rowtap form;
+   then the GEMM-land seam (``q8_backend_forward``) on one captured entry
+   tensor in both 3x3 forms, bit-identical, timed in turns;
 4. slice: ``make_tile_infer_step(engine="auto")`` must resolve to q8dg;
    ``inference_tiles`` over flip-free and flipped image batches and
    ``sample_topk``, with launch counts of 1 tap, 8 q8_matmul and 20
    q8_matmul_px per image batch; a small batch on the card agrees with the
    same batch through the port on the CPU;
-5. rowtap: the GEMM trunk in the auto and row-Toeplitz forms gives
-   bit-identical features from one captured entry tensor; a sweep with the
-   rowtap engine launches 9 q8_conv3_rowtap and 20 q8_matmul_px per image
-   batch (no q8_matmul, no q8_conv3_tap) and gives the auto sweep's probs;
+5. rowtap: a sweep with the rowtap engine launches 9 q8_conv3_rowtap and
+   20 q8_matmul_px per image batch (no q8_matmul, no q8_conv3_tap) and
+   gives the auto sweep's probs;
 6. train: ``train_stage2``, 2 epochs of the MIL cycle, once per 3x3 form:
    the same selections and the same ``fc_tile``; the train step timed at
    the CLI's 40,960-tile batch; one train step on the card against the
    same step through the port on the CPU, and two planted faults (wrong
    flips, a transposed gather) that this gate must reject;
-7. profile: device time by kernel over one sweep step, with the wgmma
-   kernel's 28 launches under its own name;
+7. profile: device time by kernel over one sweep step: 29 launches of the
+   wgmma kernel under its own name and no other hand-written kernel;
 8. one JSON line with every kernel's launches and times;
 9. last line: {"ok": true, "device": {...}}.
 
@@ -47,6 +46,7 @@ import argparse
 import copy
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -57,8 +57,8 @@ PEAK_BYTES = 3.35e12  # H100 SXM HBM3 rate, B/s
 SOURCES = {
     "q8_matmul": "cellsegmentation_tpu_torch/csrc/q8_gemm_sm90.cu",
     "q8_matmul_px": "cellsegmentation_tpu_torch/csrc/q8_gemm_sm90.cu",
-    "q8_conv3_tap": "cellsegmentation_tpu_torch/csrc/q8_gemm.cu",
-    "q8_conv3_rowtap": "cellsegmentation_tpu_torch/csrc/q8_gemm.cu",
+    "q8_conv3_tap": "cellsegmentation_tpu_torch/csrc/q8_gemm_sm90.cu",
+    "q8_conv3_rowtap": "cellsegmentation_tpu_torch/csrc/q8_gemm_sm90.cu",
 }
 # a cold timing rotates over copies of a call's operands until the bytes
 # touched between two uses of one copy pass twice the H100's 50 MB L2
@@ -224,10 +224,9 @@ def phase_build():
     from cellsegmentation_tpu_torch.kernels import build, q8_gemm
 
     t0 = time.perf_counter()
-    paths = build.build_all(["q8_gemm.cu", "q8_gemm_sm90.cu"])
-    q8_gemm._lib()
+    paths = build.build_all(["q8_gemm_sm90.cu"])
     q8_gemm._lib_sm90()
-    print(f"[build] both sources in {time.perf_counter() - t0:.1f} s, one nvcc each")
+    print(f"[build] {time.perf_counter() - t0:.1f} s")
     for source, path in paths.items():
         print(f"[build] {source} -> {path.name} in "
               f"{build.build_secs.get(source, 0.0):.1f} s")
@@ -332,6 +331,39 @@ def _work(fn, args, kw):
     return ops, nbytes, (a, b), lib_ops
 
 
+def _segments(fn, x, kw):
+    """The segment table the wrapper ``fn`` hands the wgmma core."""
+    from cellsegmentation_tpu_torch.kernels import q8_gemm as tq
+
+    if fn is tq.q8_matmul:
+        return tq.matmul_segments(x.shape[1])
+    if fn is tq.q8_matmul_px:
+        return tq.px_segments(kw["px"], kw["c_in"], kw.get("px_map"))
+    make = tq.tap_segments if fn is tq.q8_conv3_tap else tq.rowtap_segments
+    return make(kw["h_in"], kw["w_in"], kw["stride"], kw["c_in"])
+
+
+def _cudnn_conv(fn, args, kw):
+    """The library yardstick of a 3x3 call: cuDNN's bf16 conv of the same
+    map (the captured int8 input as bf16, channels-last) by a seeded bf16
+    kernel of the same shape; the port never calls it."""
+    import torch
+    import torch.nn.functional as F
+
+    from cellsegmentation_tpu_torch.kernels import q8_gemm as tq
+
+    x, wt = args[0], args[1]
+    h, w, stride, c = kw["h_in"], kw["w_in"], kw["stride"], kw["c_in"]
+    c_out = wt.shape[0]
+    if fn is tq.q8_conv3_rowtap:
+        c_out //= (w - 1) // stride + 1
+    xb = x.view(x.shape[0], h, w, c).to(torch.bfloat16).permute(0, 3, 1, 2)
+    gen = torch.Generator(device=x.device).manual_seed(0)
+    wb = torch.randn((c_out, c, 3, 3), generator=gen, device=x.device,
+                     dtype=torch.bfloat16).to(memory_format=torch.channels_last)
+    return F.conv2d, (xb, wb), dict(stride=stride, padding=1)
+
+
 def _in_turns(fns, args, kw, cold=True):
     """Graph times of several versions of one call in turns (a, b, b, a):
     the mean of each version's two readings."""
@@ -343,24 +375,22 @@ def _in_turns(fns, args, kw, cold=True):
 
 
 def phase_kernels(calls):
-    """Each kernel against its plain version at the main path's shapes; the
-    wgmma core's two kernels also against the mma.sync core, and timed
-    against it in turns."""
+    """Each kernel against its plain version at the main path's shapes,
+    timed cold and warm beside its bound and library yardsticks."""
     import torch
 
     from cellsegmentation_tpu_torch.kernels import q8_gemm as tq
 
     torch.cuda.synchronize()
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    stats = {fn: dict(calls=0, err=0.0, ms=0.0, warm_ms=0.0, mma_ms=0.0,
-                      mma_warm_ms=0.0, mma_wrapper_ms=0.0, wrapper_ms=0.0,
-                      plain_ms=0.0, lib_ms=0.0,
+    stats = {fn: dict(calls=0, err=0.0, ms=0.0, warm_ms=0.0, wrapper_ms=0.0,
+                      plain_ms=0.0, lib_ms=0.0, cudnn_ms=0.0, cudnn_warm_ms=0.0,
                       lib_warm_ms=0.0, bound_ms=0.0, ops_ms=0.0, bytes_ms=0.0,
-                      ops=0, lib_ops=0, worst=0.0) for fn in tq.KERNELS}
+                      ops=0, lib_ops=0) for fn in tq.KERNELS}
+    three = []  # (wrapper, cold ms) of each 3x3, auto form then rowtap form
     for fn, args, kw in calls:
         got = fn(*args, **kw)
         want = tq.PLAIN[fn](*args, **kw)
-        old = tq.MMA_CORE[fn](*args, **kw) if fn in tq.MMA_CORE else None
         torch.cuda.synchronize()
         check(got.shape == want.shape and got.dtype == want.dtype,
               f"{fn.__name__}: shape/dtype {got.shape}/{got.dtype} vs "
@@ -373,32 +403,19 @@ def phase_kernels(calls):
             check(bool((diff <= ulp).all()), f"{fn.__name__}: bf16 off by > 1 ulp")
         else:
             check(err == 0.0, f"{fn.__name__}: {got.dtype} output differs by {err}")
-        if old is not None:
-            check(torch.equal(got, old),
-                  f"{fn.__name__}: the wgmma and mma.sync cores differ")
-        del got, want, old
+        del got, want
         ops, nbytes, lib_args, lib_ops = _work(fn, args, kw)
         t_ops, t_bytes = ops / PEAK_INT8_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
         bound = max(t_ops, t_bytes)
         s = stats[fn]
-        if fn in tq.MMA_CORE:
-            mma = tq.MMA_CORE[fn]
-            cold = _in_turns((fn, mma), args, kw)
-            warm = _in_turns((fn, mma), args, kw, cold=False)
-            ms, mma_ms = cold[fn], cold[mma]
-            s["mma_ms"] += mma_ms
-            s["mma_warm_ms"] += warm[mma]
-            s["mma_wrapper_ms"] += cuda_ms(lambda: mma(*args, **kw), iters=20)
-            s["worst"] = max(s["worst"], ms / mma_ms)
-        else:
-            ms = graph_ms(fn, args, kw, cold=True)
-            warm = {fn: graph_ms(fn, args, kw)}
+        ms = graph_ms(fn, args, kw, cold=True)
+        warm_ms = graph_ms(fn, args, kw)
         check(bound <= ms, f"{fn.__name__}: {ms:.5f} ms beats its bound "
               f"{bound:.5f} ms: a timing that cannot be")
         s["calls"] += 1
         s["err"] = max(s["err"], err)
         s["ms"] += ms
-        s["warm_ms"] += warm[fn]
+        s["warm_ms"] += warm_ms
         s["wrapper_ms"] += cuda_ms(lambda: fn(*args, **kw), iters=20)
         s["plain_ms"] += cuda_ms(lambda: tq.PLAIN[fn](*args, **kw), iters=3, warmup=1)
         s["lib_ms"] += graph_ms(torch._int_mm, lib_args, cold=True)
@@ -411,73 +428,81 @@ def phase_kernels(calls):
         shape = f"x{tuple(args[0].shape)} wt{tuple(args[1].shape)}"
         opts = {k: v for k, v in kw.items()
                 if k in ("px", "px_map", "h_in", "stride", "out_kind", "relu")}
-        tile = ""
-        if fn in tq.MMA_CORE:
-            m, n = args[0].shape[0], args[1].shape[0]
-            k_seg = kw.get("c_in") or args[0].shape[1]
-            cfg = tq.sm90_config(m, n, k_seg, kw.get("px", 1), kw.get("out_kind", "int8"),
-                                 kw.get("residual") is not None)
-            tile = (f" tile {tq.SM90_BM}x{cfg.bn} stages {cfg.stages} smem {cfg.smem} "
-                    f"tiles {cfg.tiles} grid {min(n_sm, cfg.tiles)};"
-                    f" mma.sync {mma_ms:.5f} ms ({mma_ms / ms:.2f}x)")
+        m, n = args[0].shape[0], args[1].shape[0]
+        cfg = tq.sm90_config(m, n, _segments(fn, args[0], kw), kw.get("out_kind", "int8"),
+                             kw.get("residual") is not None)
+        tile = (f" tile {tq.SM90_BM}x{cfg.bn} stages {cfg.stages} smem {cfg.smem} "
+                f"tiles {cfg.tiles} grid {min(n_sm, cfg.tiles)} k-blocks "
+                f"{sorted(set(cfg.kblocks))};")
+        if fn in (tq.q8_conv3_tap, tq.q8_conv3_rowtap):
+            conv, cargs, ckw = _cudnn_conv(fn, args, kw)
+            c_ms = graph_ms(conv, cargs, ckw, cold=True)
+            s["cudnn_ms"] += c_ms
+            s["cudnn_warm_ms"] += graph_ms(conv, cargs, ckw)
+            tile += f" cuDNN bf16 conv {c_ms:.5f} ms cold;"
+            del conv, cargs, ckw
+        if fn in (tq.q8_matmul, tq.q8_conv3_tap, tq.q8_conv3_rowtap):
+            three.append((fn, ms))
         print(f"[kernels] {fn.__name__:15s} {shape:28s} {opts} "
               f"res={kw.get('residual') is not None} max_err={err};{tile} cold "
-              f"{ms:.5f} ms, warm {warm[fn]:.5f} ms, bound {bound:.5f} ms "
+              f"{ms:.5f} ms, warm {warm_ms:.5f} ms, bound {bound:.5f} ms "
               f"({'bytes' if t_bytes > t_ops else 'operations'}, "
               f"{100 * bound / ms:.1f}%)")
+    blocks = [f"layer3.{i}" for i in range(6)] + [f"layer4.{i}" for i in range(3)]
+    auto = [(fn, ms) for fn, ms in three if fn is not tq.q8_conv3_rowtap]
+    row = [ms for fn, ms in three if fn is tq.q8_conv3_rowtap]
+    check(len(auto) == len(row) == len(blocks), f"3x3 calls {len(auto)} / {len(row)}")
+    for name, (fn, a_ms), r_ms in zip(blocks, auto, row):
+        form = "tap" if fn is tq.q8_conv3_tap else "whole-tile matmul"
+        print(f"[kernels] 3x3 of {name}: auto form ({form}) {a_ms:.5f} ms, rowtap "
+              f"{r_ms:.5f} ms cold ({r_ms / a_ms:.2f}x)")
+    print(f"[kernels] 3x3 convs of one step: auto form {sum(m for _, m in auto):.4f} ms, "
+          f"rowtap form {sum(row):.4f} ms cold")
     for fn, s in stats.items():
         check(s["calls"] > 0, f"{fn.__name__}: no call on the main path")
         share = s["bound_ms"] / s["ms"]
         check(share <= 1.0, f"{fn.__name__}: {100 * share:.1f}% of its bound")
-        core = (f"; mma.sync core {s['mma_ms']:.4f} ms cold / {s['mma_warm_ms']:.4f} "
-                f"warm in turns, {s['mma_wrapper_ms']:.4f} eager ({s['mma_ms'] / s['ms']:.2f}x "
-                f"the wgmma core's time; slowest call at {s['worst']:.2f}x the "
-                f"mma.sync core's)"
-                if fn in tq.MMA_CORE else "")
+        cudnn = (f", cuDNN bf16 conv2d (channels-last) {s['cudnn_ms']:.4f} ms cold / "
+                 f"{s['cudnn_warm_ms']:.4f} warm"
+                 if fn in (tq.q8_conv3_tap, tq.q8_conv3_rowtap) else "")
         print(f"[kernels] {fn.__name__}: {s['calls']} calls per image batch, "
               f"{s['ops'] / 1e9:.3f} G int8 ops, max_abs_err {s['err']}, kernel "
               f"{s['ms']:.4f} ms cold, {s['warm_ms']:.4f} ms warm (CUDA graphs; "
-              f"{s['wrapper_ms']:.4f} ms eager through the wrapper){core}, plain "
+              f"{s['wrapper_ms']:.4f} ms eager through the wrapper), plain "
               f"{s['plain_ms']:.4f} ms, torch._int_mm {s['lib_ms']:.4f} ms cold / "
               f"{s['lib_warm_ms']:.4f} warm ({s['lib_ops'] / s['ops']:.2f}x the "
-              f"kernel's operations), bound {s['bound_ms']:.4f} ms "
+              f"kernel's operations){cudnn}, bound {s['bound_ms']:.4f} ms "
               f"({'bytes' if s['bytes_ms'] > s['ops_ms'] else 'operations'}; "
               f"{100 * share:.1f}% of it, cold)")
     return stats
 
 
-def phase_seam(step, entry):
+def phase_seam(step, step_row, entry):
     """The GEMM-land seam, ``q8_backend_forward`` on one captured entry
-    tensor, in a CUDA graph: on the wgmma core (the port's path) and with
-    its matmul and px calls on the mma.sync core, in turns."""
+    tensor, in the auto and row-Toeplitz 3x3 forms: bit-identical features,
+    then both timed in CUDA graphs, in turns."""
     import torch
 
-    from cellsegmentation_tpu_torch.kernels import q8_gemm as tq
-    from cellsegmentation_tpu_torch.ops import q8_trunk
+    from cellsegmentation_tpu_torch.ops.q8_trunk import q8_backend_forward
 
-    qp, metas = step.engine.qparams, step.engine.metas
+    forms = [m.w2_impl for m in step_row.engine.metas]
+    check(forms == ["rowtap"] * 9, f"rowtap engine forms {forms}")
 
-    def forward(x):
-        return q8_trunk.q8_backend_forward(qp, metas, x)
+    def auto(x):
+        return q8_backend_forward(step.engine.qparams, step.engine.metas, x)
 
-    def forward_mma(x):
-        orig = q8_trunk.q8_matmul, q8_trunk.q8_matmul_px
-        q8_trunk.q8_matmul = tq.MMA_CORE[tq.q8_matmul]
-        q8_trunk.q8_matmul_px = tq.MMA_CORE[tq.q8_matmul_px]
-        try:
-            return q8_trunk.q8_backend_forward(qp, metas, x)
-        finally:
-            q8_trunk.q8_matmul, q8_trunk.q8_matmul_px = orig
+    def rowtap(x):
+        return q8_backend_forward(step_row.engine.qparams, step_row.engine.metas, x)
 
     with torch.no_grad():
-        check(torch.equal(forward(entry), forward_mma(entry)),
-              "the GEMM-land seam differs between the cores")
-        ms = _in_turns((forward, forward_mma), (entry,), {}, cold=False)
-    print(f"[seam] q8_backend_forward, entry {tuple(entry.shape)} int8 -> bf16, "
-          f"CUDA graph: wgmma core {ms[forward]:.4f} ms, mma.sync core "
-          f"{ms[forward_mma]:.4f} ms ({ms[forward_mma] / ms[forward]:.2f}x), in turns; "
-          f"outputs bit-identical")
-    return ms[forward]
+        f_auto, f_row = auto(entry), rowtap(entry)
+        torch.cuda.synchronize()
+        d = float((f_auto.float() - f_row.float()).abs().max())
+        check(torch.equal(f_auto, f_row), f"rowtap and auto trunk features differ by {d}")
+        ms = _in_turns((auto, rowtap), (entry,), {}, cold=False)
+    print(f"[seam] q8_backend_forward, entry {tuple(entry.shape)} int8 -> bf16 features "
+          f"{tuple(f_auto.shape)}, CUDA graph: auto form {ms[auto]:.4f} ms, rowtap form "
+          f"{ms[rowtap]:.4f} ms ({ms[rowtap] / ms[auto]:.2f}x), in turns; max |diff| {d}")
 
 
 def _logodds(p):
@@ -597,25 +622,11 @@ def _sweep(src, step, args):
     return out, time.perf_counter() - t0
 
 
-def phase_rowtap(args, card, step, step_row, src, entry, probs_auto, auto_ips):
-    """The row-Toeplitz 3x3 form: the GEMM-land seam, then the sweep."""
+def phase_rowtap(args, card, step, step_row, src, probs_auto, auto_ips):
+    """The row-Toeplitz 3x3 form's sweep, counted, against the auto form's."""
     import numpy as np
-    import torch
 
     from cellsegmentation_tpu_torch.kernels import q8_gemm as tq
-    from cellsegmentation_tpu_torch.ops.q8_trunk import q8_backend_forward
-
-    forms = [m.w2_impl for m in step_row.engine.metas]
-    check(forms == ["rowtap"] * 9, f"rowtap engine forms {forms}")
-    with torch.no_grad():
-        f_auto = q8_backend_forward(step.engine.qparams, step.engine.metas, entry)
-        f_row = q8_backend_forward(step_row.engine.qparams, step_row.engine.metas,
-                                   entry)
-    torch.cuda.synchronize()
-    d = float((f_auto.float() - f_row.float()).abs().max())
-    print(f"[rowtap] GEMM-land seam: entry {tuple(entry.shape)} int8 -> bf16 "
-          f"features {tuple(f_row.shape)}, auto vs rowtap forms max |diff| {d}")
-    check(torch.equal(f_auto, f_row), "rowtap and auto trunk features differ")
 
     n_batches = math.ceil(len(src) / args.image_batch)
     _warm_flips(step_row, src, args.image_batch)
@@ -852,16 +863,20 @@ def phase_profile(step, images):
           f"({100 * busy / wall:.1f}% of the step)")
     for ms, n, key in sorted(rows, reverse=True)[:15]:
         print(f"[profile] {ms:8.3f} ms {n:4d}x {key[:110]}")
-    # the GEMM kernels by name: the wgmma core's (q8_matmul and
-    # q8_matmul_px, 8 + 20 launches a step) and the mma.sync core's (the tap)
+    # the hand-written kernels by name: the wgmma core's, 8 q8_matmul + 20
+    # q8_matmul_px + 1 q8_conv3_tap launches a step, and no other
     by_name = {}
-    for name in ("q8_wgmma_kernel", "q8_gemm_kernel"):
-        hits = [(t, n) for t, n, key in rows if name in key]
-        by_name[name] = (sum(t for t, _ in hits), sum(n for _, n in hits))
-        print(f"[profile] {name}: {by_name[name][1]} launches, "
-              f"{by_name[name][0]:.3f} ms ({100 * by_name[name][0] / busy:.1f}% of busy)")
-    check(by_name["q8_wgmma_kernel"][1] == 28 and by_name["q8_gemm_kernel"][1] == 1,
-          f"profiled launches by kernel {by_name}, want 28 wgmma and 1 mma.sync")
+    for t, n, key in rows:
+        hit = re.search(r"\bq8_\w+", key)
+        if hit:
+            name = hit.group(0)
+            ms, count = by_name.get(name, (0.0, 0))
+            by_name[name] = (ms + t, count + n)
+    for name, (ms, n) in by_name.items():
+        print(f"[profile] {name}: {n} launches, {ms:.3f} ms ({100 * ms / busy:.1f}% of busy)")
+    check(list(by_name) == ["q8_wgmma_kernel"] and by_name["q8_wgmma_kernel"][1] == 29,
+          f"profiled hand-written kernels {by_name}, want 29 q8_wgmma_kernel launches "
+          f"and no other")
 
 
 def _coords(args):
@@ -932,14 +947,14 @@ def main(argv=None) -> int:
         stats = phase_kernels(calls)
 
         phase = "seam"
-        phase_seam(step, entry)
+        phase_seam(step, step_row, entry)
 
         phase = "slice"
         launches, probs_auto, auto_ips = phase_slice(args, card, model, step, src)
 
         phase = "rowtap"
-        row_launches = phase_rowtap(args, card, step, step_row, src, entry,
-                                    probs_auto, auto_ips)
+        row_launches = phase_rowtap(args, card, step, step_row, src, probs_auto,
+                                    auto_ips)
 
         phase = "train"
         phase_train(args, card, base, src)
@@ -968,7 +983,8 @@ def main(argv=None) -> int:
             "bound_ms": s["bound_ms"],
             "bound_by": "bytes" if s["bytes_ms"] > s["ops_ms"] else "operations",
             "library_ms": s["lib_ms"], "warm_ms": s["warm_ms"],
-            "mma_core_ms": s["mma_ms"] if fn in tq.MMA_CORE else None,
+            "cudnn_ms": (s["cudnn_ms"] if fn in (tq.q8_conv3_tap, tq.q8_conv3_rowtap)
+                         else None),
         })
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -130,23 +130,69 @@ def _edge_cases(rng, m, dev):
 @pytest.mark.parametrize("m", EDGE_M)
 def test_wgmma_core_edges(m):
     """q8_matmul and q8_matmul_px on the wgmma/TMA core against their plain
-    versions (int8/int32 exact, bf16 within 1 ulp) and bit for bit against
-    the mma.sync core, at ragged and full row counts; each launch counted,
-    the mma.sync core's not."""
+    versions (int8/int32 exact, bf16 within 1 ulp) at ragged and full row
+    counts; each launch counted."""
     dev = _card()
     rng = np.random.default_rng(100 + m)
     cases = _edge_cases(rng, m, dev)
     tq.reset_launch_counts()
     for fn, args, kw in cases:
         got = fn(*args, **kw)
-        old = tq.MMA_CORE[fn](*args, **kw)
         want = tq.PLAIN[fn](*args, **kw)
         torch.cuda.synchronize()
         what = f"{fn.__name__} m={m} wt{tuple(args[1].shape)} {kw.get('out_kind', 'int8')}"
         _assert_plain(got, want, what)
-        assert torch.equal(got, old), what + " vs the mma.sync core"
     n_mm = sum(fn is tq.q8_matmul for fn, _, _ in cases)
     assert (tq.q8_matmul.launches, tq.q8_matmul_px.launches) == (n_mm, len(cases) - n_mm)
+
+
+# every 3x3 geometry of the ResNet-50 trunk: (h = w, stride, C); C' = C
+TAP_GEOMS = [(4, 2, 256)]                                      # layer3 block0
+ROWTAP_GEOMS = [(4, 2, 256), (2, 1, 256), (2, 2, 512), (1, 1, 512)]  # 3.0, 3.1-5, 4.0, 4.1-2
+
+
+def _conv_cases(rng, m, dev):
+    """(wrapper, args, kwargs) of the two 3x3 convs at every trunk geometry:
+    the tap with int8 and bf16 out, ReLU on and off; each rowtap geometry
+    with int8 + ReLU and bf16 without."""
+    epi = {k: SCALES[k] for k in ("in_scale", "out_scale")}
+
+    def operands(h, c, n, k):
+        b, ws = _epi_args(rng, n)
+        return (_ints(rng, (m, h * h * c)).to(dev), _ints(rng, (n, k)).to(dev),
+                b.to(dev), ws.to(dev))
+
+    cases = []
+    for h, stride, c in TAP_GEOMS:
+        ops = operands(h, c, c, 9 * c)
+        cases += [(tq.q8_conv3_tap, ops, dict(h_in=h, w_in=h, stride=stride, c_in=c,
+                                             out_kind=kind, relu=relu, **epi))
+                  for kind in ("int8", "bf16") for relu in (True, False)]
+    for h, stride, c in ROWTAP_GEOMS:
+        ops = operands(h, c, ((h - 1) // stride + 1) * c, 3 * h * c)
+        cases += [(tq.q8_conv3_rowtap, ops, dict(h_in=h, w_in=h, stride=stride, c_in=c,
+                                                out_kind=kind, relu=relu, **epi))
+                  for kind, relu in (("int8", True), ("bf16", False))]
+    return cases
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", EDGE_M)
+def test_wgmma_core_conv_edges(m):
+    """q8_conv3_tap and q8_conv3_rowtap on the wgmma/TMA core (a segment
+    table per output pixel or row) against their plain versions at every
+    trunk geometry, at ragged and full row counts; each launch counted."""
+    dev = _card()
+    rng = np.random.default_rng(200 + m)
+    cases = _conv_cases(rng, m, dev)
+    tq.reset_launch_counts()
+    for fn, args, kw in cases:
+        got = fn(*args, **kw)
+        want = tq.PLAIN[fn](*args, **kw)
+        torch.cuda.synchronize()
+        _assert_plain(got, want, f"{fn.__name__} m={m} {kw}")
+    n_tap = sum(fn is tq.q8_conv3_tap for fn, _, _ in cases)
+    assert [f.launches for f in tq.KERNELS] == [0, 0, n_tap, len(cases) - n_tap]
 
 
 @pytest.mark.cuda
@@ -169,4 +215,13 @@ def test_wgmma_core_refuses_what_it_does_not_take():
     with pytest.raises(ValueError):  # a contiguous x that TMA cannot address
         tq.q8_matmul(buf[1:1 + 8 * 128].view(8, 128), _ints(rng, (128, 128)).to(dev),
                      b, ws)
-    assert tq.q8_matmul.launches == 0 and tq.q8_matmul_px.launches == 0
+    with pytest.raises(ValueError):  # tap segments of C = 64 bytes
+        tq.q8_conv3_tap(_ints(rng, (8, 16 * 64)).to(dev), _ints(rng, (128, 9 * 64)).to(dev),
+                        b, ws, h_in=4, w_in=4, stride=2, c_in=64)
+    with pytest.raises(ValueError):  # 100 output pixels: more groups than the table holds
+        tq.q8_conv3_tap(_ints(rng, (8, 100 * 128)).to(dev), _ints(rng, (128, 9 * 128)).to(dev),
+                        b, ws, h_in=10, w_in=10, stride=1, c_in=128)
+    with pytest.raises(ValueError):  # rowtap segments of w_in*C = 64 bytes
+        tq.q8_conv3_rowtap(_ints(rng, (8, 64)).to(dev), _ints(rng, (128, 3 * 64)).to(dev),
+                           b, ws, h_in=1, w_in=1, stride=1, c_in=64)
+    assert all(f.launches == 0 for f in tq.KERNELS)
