@@ -1,15 +1,17 @@
 """cellsegmentation_tpu_torch — the PyTorch/CUDA port of cellsegmentation_tpu.
 
 The JAX package ``cellsegmentation_tpu`` stays the reference; this package
-mirrors its layout (core/, data/, models/, ops/, kernels/, csrc/, train/,
-infer/, utils/) so each module's counterpart is found under the same path.
-Its kernels are hand-written for Hopper (``csrc/``, built with nvcc at
-first use, see ``kernels/build.py``).
+mirrors its layout (cli/, core/, data/, models/, ops/, kernels/, csrc/,
+train/, infer/, utils/) so each module's counterpart is found under the
+same path. Its kernels are hand-written for Hopper (``csrc/``, built with
+nvcc at first use, see ``kernels/build.py``).
 
-What is ported so far is the stage-2 serving sweep: the dense shared-stem
-q8dg tile engine on the ResNet family (``train.steps.make_tile_infer_step``),
-``infer.inference_tiles`` and ``infer.sample_topk``. Entry points run on the
-CUDA card unless the caller passes ``device="cpu"``.
+What is ported so far, on the ResNet family: stage 1 (image-count training,
+``train.trainers.train_stage1``, and ``infer.inference_image``, with the
+``train_image`` and ``test_count`` CLIs) and stage 2 (the dense shared-stem
+q8dg tile sweep, ``train.steps.make_tile_infer_step``, and the MIL cycle,
+``train.trainers.train_stage2``). Entry points run on the CUDA card unless
+the caller passes ``device="cpu"``.
 
 Layouts at public functions follow the JAX package: NHWC images and
 features, and the whole-tile ``[M, px*C]`` int8 layout (column

@@ -4,7 +4,7 @@ from cellsegmentation_tpu_torch.data.batches import (
     BatchIterator,
     normalize_images,
 )
-from cellsegmentation_tpu_torch.data.lysto import LystoDataSource
+from cellsegmentation_tpu_torch.data.lysto import LystoDataSource, LystoTestSource
 from cellsegmentation_tpu_torch.data.synthetic import (
     make_synthetic_arrays,
     make_synthetic_h5,
@@ -12,6 +12,7 @@ from cellsegmentation_tpu_torch.data.synthetic import (
 
 __all__ = [
     "LystoDataSource",
+    "LystoTestSource",
     "BatchIterator",
     "normalize_images",
     "IMAGENET_MEAN",

@@ -1,4 +1,5 @@
-"""LYSTO training/validation source.
+"""LYSTO sources: the training/validation source and the unlabeled test
+source.
 
 - k-fold split by ``(i+1) % kfold``: fold members are the validation set;
 - the organ filter compares the prefix before '_';
@@ -6,9 +7,9 @@
   image plus an index table (base_idx, flip_code), flips run on the device;
 - hard-example resampling mutates the same index table.
 
-A source is built from ``training.h5`` (``h5py`` is imported only then) or,
-through ``LystoDataSource.from_arrays``, from in-memory arrays with the same
-split, organ and augment logic.
+A source is built from an h5 file (``h5py`` is imported only then) or,
+through ``from_arrays``, from in-memory arrays with the same split, organ
+and augment logic.
 """
 
 from __future__ import annotations
@@ -160,3 +161,41 @@ class LystoDataSource:
         self.base_idx = np.concatenate([self.base_idx, base_idx])
         self.flip_code = np.concatenate([self.flip_code, flip_code])
         self.labels = np.concatenate([self.labels, labels])
+
+
+class LystoTestSource:
+    """Unlabeled test source over ``test.h5``, optionally one organ's
+    images; ``ids`` are the images' 1-based positions in the file, and
+    ``labels`` the file's counts when it has any (else None)."""
+
+    def __init__(self, filepath: str, organ: Optional[str] = None,
+                 num_of_imgs: int = 0):
+        images, organs, counts = _load_h5(filepath, num_of_imgs)
+        self._setup(images, organs, counts, organ)
+
+    @classmethod
+    def from_arrays(cls, images: np.ndarray, organs: Sequence,
+                    counts: Optional[np.ndarray] = None,
+                    organ: Optional[str] = None) -> "LystoTestSource":
+        """The same source from arrays; ``organs`` may be str or bytes."""
+        organs = [o.decode("utf-8") if isinstance(o, bytes) else o for o in organs]
+        src = cls.__new__(cls)
+        src._setup(np.asarray(images), organs,
+                   None if counts is None else np.asarray(counts), organ)
+        return src
+
+    def _setup(self, images, organs, counts, organ) -> None:
+        keep = np.asarray([i for i in range(len(images))
+                           if organ is None or organs[i].partition("_")[0] == organ],
+                          dtype=np.int64)
+        self.images = images[keep]
+        self.organs = [organs[i] for i in keep]
+        self.ids = keep + 1
+        self.labels = counts[keep] if counts is not None else None
+
+    def __len__(self) -> int:
+        return len(self.images)
+
+    @property
+    def image_hw(self) -> tuple[int, int]:
+        return self.images.shape[1], self.images.shape[2]

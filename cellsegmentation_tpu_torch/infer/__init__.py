@@ -1,7 +1,9 @@
-"""Batched stage-2 inference and the adaptive top-k sampling step.
+"""Batched inference (stage-1 counts, the stage-2 tile sweep) and the
+adaptive top-k sampling step.
 
-Host loops around the sweep step of train/steps.py. Device->host traffic is
-one [N, T] prob matrix; the tile images never leave the device. The loop is
+Host loops around the steps of train/steps.py. Device->host traffic is two
+scalars per image for stage 1 and one [N, T] prob matrix for stage 2; the
+tile images never leave the device. Each loop is
 a 2-deep software pipeline: CUDA work is asynchronous, so batch i+1's upload
 and compute are queued before batch i's probs are fetched, and the blocking
 fetch overlaps the device's next batch. Single-process: the multi-host
@@ -17,6 +19,7 @@ import torch
 
 from cellsegmentation_tpu_torch.core.device import resolve_device
 from cellsegmentation_tpu_torch.data.batches import BatchIterator
+from cellsegmentation_tpu_torch.ops.categorize import categorize_np, de_categorize_np
 from cellsegmentation_tpu_torch.ops.tiles import tile_grid
 from cellsegmentation_tpu_torch.ops.topk import adaptive_topk_mask
 
@@ -33,6 +36,55 @@ def pipeline2(items, dispatch):
         pending = (item, res)
     if pending is not None:
         yield pending
+
+
+def _clean_counts(regs: np.ndarray) -> np.ndarray:
+    """Round regressed counts, clamping diverged values (nan, inf, absurd)
+    into [0, 1e6]."""
+    return np.round(
+        np.nan_to_num(regs, nan=0.0, posinf=1e6, neginf=0.0)
+    ).clip(0, 1e6).astype(np.int64)
+
+
+def apply_cls_limit(counts: np.ndarray, categories: np.ndarray) -> np.ndarray:
+    """Clamp regressed counts into the predicted class's count range: a
+    count whose bin is above the class snaps to the class's max, one below
+    to its min."""
+    counts = counts.astype(np.int64).copy()
+    cat_of_count = categorize_np(counts)
+    lo, hi = de_categorize_np(categories)
+    counts = np.where(cat_of_count > categories, hi, counts)
+    return np.where(cat_of_count < categories, lo, counts)
+
+
+def inference_image(source, infer_step, batch_size: int = 64,
+                    cls_limit: bool = False):
+    """The image counter over a source: (categories [N], counts [N]) int64.
+
+    ``infer_step`` is ``train.steps.make_image_infer_step(model)``:
+    ``(images u8, flip) -> (probs [B, 7], counts [B])`` on the device.
+    Counts are rounded with diverged values clamped (a nan or huge count
+    must not poison the kappa downstream), then with ``cls_limit`` clamped
+    into the predicted class's range."""
+    n = len(source)
+    flip = getattr(source, "flip_code", np.zeros(n, dtype=np.int32))
+    base_idx = getattr(source, "base_idx", np.arange(n))
+    categories = np.zeros(n, dtype=np.int64)
+    counts = np.zeros(n, dtype=np.int64)
+
+    def dispatch(sv):
+        sel, _ = sv
+        return infer_step(source.images[base_idx[sel]], flip[sel])
+
+    batches = BatchIterator(n, batch_size, shuffle=False)
+    for (sel, valid), (d_probs, d_regs) in pipeline2(batches, dispatch):
+        keep = sel[valid]
+        categories[keep] = d_probs.argmax(dim=1).cpu().numpy()[valid]
+        counts[keep] = _clean_counts(d_regs.cpu().numpy()[valid])
+
+    if cls_limit:
+        counts = apply_cls_limit(counts, categories)
+    return categories, counts
 
 
 def inference_tiles(

@@ -1,9 +1,17 @@
-"""Shared model building blocks: the conv+BN(+ReLU) unit and the tile head.
+"""Shared model building blocks: the conv+BN(+ReLU) unit, the tile head and
+the image-count heads.
 
 Activations are NHWC at module boundaries (the JAX package's layout); a
 module permutes to NCHW views internally, which for an NHWC-contiguous
-tensor is PyTorch's ``channels_last`` format and costs no copy. Convs run in
-the policy's compute dtype and BatchNorm in f32, as in the JAX package.
+tensor is PyTorch's ``channels_last`` format and costs no copy. Convs and
+Dense layers run in the policy's compute dtype and BatchNorm in f32, as in
+the JAX package.
+
+BatchNorm in train mode (``train=True``) follows flax's ``BatchNorm(
+momentum=0.9)``: it normalizes with the batch's own biased statistics and
+moves the running ones by ``ra = 0.9 * ra + 0.1 * batch``, the variance
+biased too (``F.batch_norm``'s own update would use the unbiased one and
+the complement of the momentum, so the update is computed here).
 """
 
 from __future__ import annotations
@@ -16,14 +24,37 @@ from cellsegmentation_tpu_torch.core.dtypes import DEFAULT_POLICY, Policy
 from cellsegmentation_tpu_torch.ops.pooling import global_avg_max_pool
 
 
+# flax's BatchNorm momentum: the share of the running statistics an update keeps
+BN_MOMENTUM = 0.9
+
+
+def batch_norm(x: torch.Tensor, bn: nn.Module, train: bool) -> torch.Tensor:
+    """f32 BatchNorm over every axis but 1: on the running statistics, or in
+    train mode on the batch's, updating the running ones in place."""
+    if not train:
+        return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
+                            bn.bias, False, 0.0, bn.eps)
+    # momentum 1 makes F.batch_norm write the batch's mean and unbiased
+    # variance into these buffers; the flax update is made from them below
+    mean = torch.zeros_like(bn.running_mean)
+    var = torch.ones_like(bn.running_var)
+    y = F.batch_norm(x, mean, var, bn.weight, bn.bias, True, 1.0, bn.eps)
+    n = x.numel() // x.shape[1]
+    with torch.no_grad():
+        bn.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1 - BN_MOMENTUM)
+        bn.running_var.mul_(BN_MOMENTUM).add_(var * ((n - 1) / n),
+                                              alpha=1 - BN_MOMENTUM)
+    return y
+
+
 def conv_bn_act(x: torch.Tensor, conv: nn.Conv2d, bn: nn.BatchNorm2d,
-                relu: bool, dtype: torch.dtype) -> torch.Tensor:
-    """Conv (compute dtype, no bias) -> BatchNorm on running stats (f32)
-    -> optional ReLU -> compute dtype. ``x`` is an NCHW view."""
+                relu: bool, dtype: torch.dtype, train: bool = False) -> torch.Tensor:
+    """Conv (compute dtype, no bias) -> BatchNorm (f32; running stats, or
+    the batch's in train mode) -> optional ReLU -> compute dtype. ``x`` is
+    an NCHW view."""
     y = F.conv2d(x.to(dtype), conv.weight.to(dtype), None, conv.stride,
                  conv.padding, conv.dilation, conv.groups)
-    y = F.batch_norm(y.float(), bn.running_mean, bn.running_var, bn.weight,
-                     bn.bias, False, 0.0, bn.eps)
+    y = batch_norm(y.float(), bn, train)
     if relu:
         y = F.relu(y)
     return y.to(dtype)
@@ -44,9 +75,9 @@ class ConvBNAct(nn.Sequential):
         self.use_relu = use_relu
         self.policy = policy
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         return conv_bn_act(x, self[0], self[1], self.use_relu,
-                           self.policy.compute_dtype)
+                           self.policy.compute_dtype, train)
 
 
 class TileHead(nn.Sequential):
@@ -66,6 +97,64 @@ class TileHead(nn.Sequential):
         return (F.linear(pooled, lin.weight.to(dt)) + lin.bias.to(dt)).float()
 
 
+def _dense(x: torch.Tensor, lin: nn.Linear, dt: torch.dtype) -> torch.Tensor:
+    """flax ``Dense(dtype=dt)``: input, f32 kernel and bias cast to ``dt``."""
+    return F.linear(x.to(dt), lin.weight.to(dt)) + lin.bias.to(dt)
+
+
+class ImageHeadMLP(nn.Sequential):
+    """BN1d -> Dropout(.25) -> ReLU -> Dense(64) -> BN1d -> Dropout(.5) ->
+    Dense(out) [-> ReLU], on pooled features [N, C] -> f32 [N, out].
+
+    The layers sit at the reference's ``Sequential(Flatten, BN1d, Dropout,
+    ReLU, Linear, BN1d, Dropout, Linear[, ReLU])`` indices, so state-dict
+    keys are ``.1`` / ``.4`` / ``.5`` / ``.7``. BatchNorm, dropout and ReLU
+    run in f32, the Dense layers in the compute dtype.
+
+    Dropout is ``where(keep_mask, x / keep, 0)`` as in flax. In train mode
+    the keep masks are ``dropout_masks`` when given (a pair, [N, C] and
+    [N, 64] bool), else drawn by ``draw_masks`` from ``generator``."""
+
+    RATES = (0.25, 0.5)
+
+    def __init__(self, in_features: int, out_features: int,
+                 relu_out: bool = False, policy: Policy = DEFAULT_POLICY):
+        layers = [nn.Flatten(), nn.BatchNorm1d(in_features, eps=1e-5),
+                  nn.Dropout(self.RATES[0]), nn.ReLU(),
+                  nn.Linear(in_features, 64), nn.BatchNorm1d(64, eps=1e-5),
+                  nn.Dropout(self.RATES[1]), nn.Linear(64, out_features)]
+        if relu_out:
+            layers.append(nn.ReLU())
+        super().__init__(*layers)
+        self.relu_out = relu_out
+        self.policy = policy
+
+    def draw_masks(self, n: int, generator=None, device=None):
+        """Keep masks of the two dropouts for a batch of ``n``, drawn in
+        order from ``generator`` (or the global generator of ``device``)."""
+        dev = device or self[4].weight.device
+        widths = (self[1].num_features, self[5].num_features)
+        return tuple(
+            torch.rand((n, c), generator=generator, device=dev) >= rate
+            for c, rate in zip(widths, self.RATES)
+        )
+
+    def forward(self, pooled: torch.Tensor, train: bool = False,
+                dropout_masks=None, generator=None) -> torch.Tensor:
+        dt = self.policy.compute_dtype
+        x = batch_norm(pooled.float(), self[1], train)
+        if train:
+            masks = dropout_masks or self.draw_masks(x.shape[0], generator,
+                                                     x.device)
+            x = torch.where(masks[0], x / (1 - self.RATES[0]), 0.0)
+        x = F.relu(x)
+        x = batch_norm(_dense(x, self[4], dt).float(), self[5], train)
+        if train:
+            x = torch.where(masks[1], x / (1 - self.RATES[1]), 0.0)
+        x = _dense(x, self[7], dt).float()
+        return F.relu(x) if self.relu_out else x
+
+
 @torch.no_grad()
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     """Seeded initialization: convs kaiming-normal (fan_out, ReLU gain),
@@ -75,7 +164,7 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
         if isinstance(m, nn.Conv2d):
             nn.init.kaiming_normal_(m.weight, mode="fan_out",
                                     nonlinearity="relu", generator=generator)
-        elif isinstance(m, nn.BatchNorm2d):
+        elif isinstance(m, (nn.BatchNorm2d, nn.BatchNorm1d)):
             m.reset_parameters()
         elif isinstance(m, nn.Linear):
             nn.init.normal_(m.weight, 0.0, m.in_features ** -0.5,

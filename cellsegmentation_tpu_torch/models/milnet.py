@@ -1,11 +1,16 @@
 """The MIL model: one encoder plus task heads, mode-switched forward.
 
-This slice carries the encoder and the tile head (``mode="tile"``); the
-image heads and the seg decoder come with the stage-1 and stage-3 slices of
-the port. Parameter names mirror the reference's torch model
-(``encoder.*`` holds torchvision's names, ``fc_tile.1.*`` the Linear), so
-the JAX weight bridge (utils/jax_weights.py) and reference checkpoints map
-onto them by name.
+This port carries the encoder, the tile head (``mode="tile"``) and the two
+image-count heads (``mode="image"``); the seg decoder comes with the
+stage-3 slice. Parameter names mirror the reference's torch model
+(``encoder.*`` holds torchvision's names, ``fc_tile.1.*`` the Linear,
+``fc_image_*.1/.4/.5/.7`` the image MLPs), so the JAX weight bridge
+(utils/jax_weights.py) and reference checkpoints map onto them by name.
+
+BatchNorm per stage, as in the JAX package: stage 1 runs everything in
+train mode (``train=True``: batch statistics, running ones updated);
+stage 2 runs the encoder on its running statistics
+(``freeze_encoder_stats=True``, or the tile step's no-grad encoder call).
 """
 
 from __future__ import annotations
@@ -14,7 +19,12 @@ import torch
 from torch import nn
 
 from cellsegmentation_tpu_torch.core.dtypes import DEFAULT_POLICY, Policy
-from cellsegmentation_tpu_torch.models.common import TileHead, init_weights
+from cellsegmentation_tpu_torch.models.common import (
+    ImageHeadMLP,
+    TileHead,
+    init_weights,
+)
+from cellsegmentation_tpu_torch.ops.pooling import global_avg_max_pool
 
 MODES = ("image", "tile", "segment")
 
@@ -26,37 +36,58 @@ IMAGE_CLS_KEY = "fc_image_cls"
 IMAGE_REG_KEY = "fc_image_reg"
 SEG_KEY = "seg_decoder"
 PARTITIONS = (ENCODER_KEY, TILE_KEY, IMAGE_CLS_KEY, IMAGE_REG_KEY, SEG_KEY)
-_LATER = {
-    "image": "the stage-1 slice (image heads)",
-    "segment": "the stage-3 slice (seg decoder)",
-}
+IMAGE_HEADS = (IMAGE_CLS_KEY, IMAGE_REG_KEY)
 
 
 class MILNet(nn.Module):
-    """Encoder + tile head. ``forward(x, mode="tile")``: NHWC normalized
-    tiles [N, H, W, 3] -> f32 tile logits [N, 2]."""
+    """Encoder + tile head + image-count heads.
+
+    ``forward(x, mode, train=False, freeze_encoder_stats=False)`` on NHWC
+    normalized images [N, H, W, 3]:
+
+    - ``mode="tile"``  -> f32 tile logits [N, 2];
+    - ``mode="image"`` -> (f32 class logits [N, 7], f32 counts [N, 1]).
+
+    ``train`` puts every BatchNorm in train mode and turns dropout on, the
+    encoder's BatchNorm unless ``freeze_encoder_stats``. ``dropout_masks``
+    (``{head name: (mask0, mask1)}``) fixes the image heads' dropout; else
+    each head draws its masks from ``generator``, the class head first."""
 
     def __init__(self, encoder: nn.Module, num_tile_classes: int = 2,
-                 policy: Policy = DEFAULT_POLICY):
+                 num_image_classes: int = 7, policy: Policy = DEFAULT_POLICY):
         super().__init__()
         self.encoder = encoder
         self.policy = policy
-        self.fc_tile = TileHead(encoder.out_channels, num_tile_classes, policy)
+        c = encoder.out_channels
+        self.fc_tile = TileHead(c, num_tile_classes, policy)
+        self.fc_image_cls = ImageHeadMLP(c, num_image_classes, policy=policy)
+        self.fc_image_reg = ImageHeadMLP(c, 1, relu_out=True, policy=policy)
 
-    def forward(self, x: torch.Tensor, mode: str = "tile") -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mode: str = "tile", train: bool = False,
+                freeze_encoder_stats: bool = False, dropout_masks=None,
+                generator=None):
         if mode not in MODES:
             raise ValueError(f"invalid mode {mode!r}; expected one of {MODES}")
-        if mode != "tile":
+        if mode == "segment":
             raise NotImplementedError(
-                f"mode={mode!r} is not ported yet; it comes with {_LATER[mode]}"
+                "mode='segment' is not ported yet; it comes with the stage-3 "
+                "slice (seg decoder)"
             )
-        x4 = self.encoder(x)[0]
-        return self.fc_tile(x4)
+        x4 = self.encoder(x, train=train and not freeze_encoder_stats)[0]
+        if mode == "tile":
+            return self.fc_tile(x4)
+        pooled = global_avg_max_pool(x4)
+        masks = dropout_masks or {}
+        return tuple(
+            getattr(self, k)(pooled, train, masks.get(k), generator)
+            for k in IMAGE_HEADS
+        )
 
     def set_trainable(self, partitions) -> None:
         """``requires_grad`` on for the named partitions' parameters, off for
-        every other's. BatchNorm is untouched: the encoder runs on its
-        running statistics in every mode this slice has."""
+        every other's. BatchNorm statistics are not parameters: a frozen
+        partition run in train mode still updates them, as in the JAX
+        package."""
         missing = set(partitions) - {n for n, _ in self.named_children()}
         if missing:
             raise NotImplementedError(

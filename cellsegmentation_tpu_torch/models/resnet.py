@@ -1,4 +1,6 @@
-"""ResNet encoders (eval mode, running BatchNorm statistics).
+"""ResNet encoders. ``forward(x, train=False)``: BatchNorm on its running
+statistics, or with ``train=True`` on the batch's, updating the running ones
+(models/common.py ``batch_norm``).
 
 Geometry: a 299x299 input -> conv1(7x7,s2,p3) 150 -> maxpool(3x3,s2,p1) 75 ->
 layer1 75 -> layer2 38 -> layer3 19 -> layer4 10; a 32x32 tile ->
@@ -40,11 +42,11 @@ class BasicBlock(nn.Module):
             self.downsample = ConvBNAct(inplanes, planes, 1, stride, 0,
                                         use_relu=False, policy=policy)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         dt = self.policy.compute_dtype
-        out = conv_bn_act(x, self.conv1, self.bn1, True, dt)
-        out = conv_bn_act(out, self.conv2, self.bn2, False, dt)
-        res = x if self.downsample is None else self.downsample(x)
+        out = conv_bn_act(x, self.conv1, self.bn1, True, dt, train)
+        out = conv_bn_act(out, self.conv2, self.bn2, False, dt, train)
+        res = x if self.downsample is None else self.downsample(x, train)
         return F.relu(out + res)
 
 
@@ -71,12 +73,12 @@ class Bottleneck(nn.Module):
             self.downsample = ConvBNAct(inplanes, out_ch, 1, stride, 0,
                                         use_relu=False, policy=policy)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         dt = self.policy.compute_dtype
-        out = conv_bn_act(x, self.conv1, self.bn1, True, dt)
-        out = conv_bn_act(out, self.conv2, self.bn2, True, dt)
-        out = conv_bn_act(out, self.conv3, self.bn3, False, dt)
-        res = x if self.downsample is None else self.downsample(x)
+        out = conv_bn_act(x, self.conv1, self.bn1, True, dt, train)
+        out = conv_bn_act(out, self.conv2, self.bn2, True, dt, train)
+        out = conv_bn_act(out, self.conv3, self.bn3, False, dt, train)
+        res = x if self.downsample is None else self.downsample(x, train)
         return F.relu(out + res)
 
 
@@ -106,14 +108,15 @@ class ResNetEncoder(nn.Module):
             self.add_module(f"layer{stage + 1}", nn.Sequential(*layer))
         self.out_channels = inplanes
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor, train: bool = False):
         dt = self.policy.compute_dtype
         x = x.to(dt).permute(0, 3, 1, 2)  # NHWC -> NCHW view (channels_last)
-        x = conv_bn_act(x, self.conv1, self.bn1, True, dt)
+        x = conv_bn_act(x, self.conv1, self.bn1, True, dt, train)
         x = F.max_pool2d(x, 3, 2, 1)
         feats = []
         for i in range(4):
-            x = getattr(self, f"layer{i + 1}")(x)
+            for block in getattr(self, f"layer{i + 1}"):
+                x = block(x, train)
             feats.append(x.permute(0, 2, 3, 1))
         x1, x2, x3, x4 = feats
         return x4, x3, x2, x1

@@ -1,4 +1,5 @@
-"""Tile error metrics (host numpy)."""
+"""Metrics (host numpy): tile error rates and the quadratic weighted kappa,
+LYSTO's headline count metric."""
 
 from __future__ import annotations
 
@@ -14,3 +15,35 @@ def calc_err(pred, real) -> tuple[float, float, float]:
     fpr = float(np.logical_and(pred == 1, neq).sum()) / max((real == 0).sum(), 1)
     fnr = float(np.logical_and(pred == 0, neq).sum()) / max((real == 1).sum(), 1)
     return err, fpr, fnr
+
+
+def _kappa_from_confusion(conf: np.ndarray) -> float:
+    k = conf.shape[0]
+    n = conf.sum()
+    if k <= 1:
+        return 1.0
+    idx = np.arange(k)
+    w = (idx[:, None] - idx[None, :]) ** 2 / (k - 1) ** 2
+    expected = np.outer(conf.sum(axis=1), conf.sum(axis=0)) / n
+    denom = (w * expected).sum()
+    if denom == 0:
+        return 1.0
+    return float(1.0 - (w * conf).sum() / denom)
+
+
+def quadratic_weighted_kappa(rater_a, rater_b, min_rating=None,
+                             max_rating=None) -> float:
+    """QWK between two integer rating vectors; the rating range is the
+    min/max over both raters unless given."""
+    a = np.asarray(rater_a, dtype=int)
+    b = np.asarray(rater_b, dtype=int)
+    if a.shape != b.shape:
+        raise ValueError(f"rater shapes differ: {a.shape} vs {b.shape}")
+    if min_rating is None:
+        min_rating = int(min(a.min(), b.min()))
+    if max_rating is None:
+        max_rating = int(max(a.max(), b.max()))
+    k = max_rating - min_rating + 1
+    conf = np.zeros((k, k), dtype=np.float64)
+    np.add.at(conf, (a - min_rating, b - min_rating), 1)
+    return _kappa_from_confusion(conf)

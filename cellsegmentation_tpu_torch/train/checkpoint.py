@@ -9,7 +9,9 @@ prefix:
 - saving "image" (pt1) keeps {encoder, fc_image_cls, fc_image_reg};
 - saving "tile" (pt2) adds fc_tile; "segment" (pt3) adds seg_decoder;
 - loading merges whatever entries the file has into the target state dict
-  (the reference's ``strict=False``) and never fails on missing heads.
+  (the reference's ``strict=False``) and never fails on missing heads;
+  ``restore_into`` merges only the named partitions (the stage-1 -> stage-2
+  handoff, and the count CLI's load).
 
 ``optimizer`` is ``optimizer.state_dict()``. Schedules are pure functions
 of the step, so only the step counter is stored. The port reads and writes
@@ -19,7 +21,7 @@ its own files only, not the JAX package's msgpack ones.
 from __future__ import annotations
 
 import os
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
@@ -30,6 +32,7 @@ from cellsegmentation_tpu_torch.models.milnet import (
     SEG_KEY,
     TILE_KEY,
 )
+from torch import nn
 
 STAGE_SAVE_PARTITIONS = {
     "image": (ENCODER_KEY, IMAGE_CLS_KEY, IMAGE_REG_KEY),  # pt1
@@ -88,3 +91,17 @@ def merge_loaded(target: dict, loaded: dict) -> dict:
     the file also has replaced by the file's; entries only in the file are
     dropped."""
     return {k: loaded.get(k, v) for k, v in target.items()}
+
+
+def restore_into(model: nn.Module, ckpt: dict,
+                 partitions: Optional[Sequence[str]] = None) -> nn.Module:
+    """Copy a checkpoint payload's ``state_dict`` into ``model`` in place,
+    only the entries of ``partitions`` (top-level module names) when given,
+    every entry the file has otherwise; the model keeps its own values
+    elsewhere. Returns the model."""
+    loaded = ckpt["state_dict"]
+    if partitions is not None:
+        loaded = {k: v for k, v in loaded.items()
+                  if k.split(".", 1)[0] in partitions}
+    model.load_state_dict(merge_loaded(model.state_dict(), loaded))
+    return model

@@ -1,5 +1,11 @@
-"""Stage-2 steps: the tile sweep (engine resolution, the exact per-tile
-graph) and the selected-tile train step.
+"""The stage steps: stage 1's image train and infer steps, stage 2's tile
+sweep (engine resolution, the exact per-tile graph) and selected-tile train
+step.
+
+``make_image_train_step`` trains the whole model in train mode (every
+BatchNorm on batch statistics, running ones updated; dropout on) against
+``CE(cls) + MSE(reg)``; ``make_image_infer_step`` runs it on
+running statistics without dropout.
 
 ``make_tile_infer_step`` returns a callable ``(images_u8, flip) -> probs
 [G, T]`` (softmax P(positive) per tile, reference tile order) on the
@@ -30,6 +36,7 @@ import torch.nn.functional as F
 from cellsegmentation_tpu_torch.core.device import model_device
 from cellsegmentation_tpu_torch.data.batches import flip_images, normalize_images
 from cellsegmentation_tpu_torch.models.milnet import MILNet
+from cellsegmentation_tpu_torch.ops.losses import count_weights
 from cellsegmentation_tpu_torch.ops.q8_trunk import W2_IMPLS
 from cellsegmentation_tpu_torch.ops.tiles import extract_tiles, tile_grid
 
@@ -248,3 +255,86 @@ def make_tile_train_step(model: MILNet, tile_size: int, device=None):
 
     step.loss_fn = loss_fn
     return step
+
+
+# ---------------------------------------------------------------------------
+# Stage 1: the image-wise counter
+# ---------------------------------------------------------------------------
+
+HEADS = ("both", "cls", "reg")
+REG_LOSSES = ("mse", "weighted_mse")
+_IMAGE_KEYS = ("images", "flip", "cls", "reg", "valid")
+
+
+def dropout_generator(seed: int, step: int, device) -> torch.Generator:
+    """The dropout masks' generator of update ``step``: seeded from
+    (``seed``, ``step``), so a resumed run draws what a straight run draws."""
+    mixed = np.random.SeedSequence((seed, step)).generate_state(1, np.uint64)[0]
+    return torch.Generator(device=device).manual_seed(int(mixed))
+
+
+def make_image_train_step(model: MILNet, heads: str = "both",
+                          reg_loss: str = "mse", seed: int = 0, device=None):
+    """Stage-1 step over batches ``{images: u8 [B,H,W,3], flip, cls, reg,
+    valid}`` (host or device arrays; ``valid`` masks the last batch's
+    padding out of the loss, while the padded rows still take part in every
+    BatchNorm's batch statistics, as in the JAX package).
+
+    ``step(state, batch, dropout_masks=None) -> (state, metrics)``: the
+    masked-mean losses ``loss_cls`` (CE), ``loss_reg`` (MSE, or the
+    reference's WeightedMSELoss with ``reg_loss="weighted_mse"``) and
+    ``loss = CE + MSE`` (the reference's weights are 1 and 1) as device
+    scalars; the gradient is taken of the ``heads`` part alone. The
+    state's optimizer holds the stage's partitions (``"image"``,
+    ``"image_cls"`` or ``"image_reg"``, train/state.py); a frozen head
+    still runs in train mode and updates its BatchNorm statistics. Dropout masks come from ``dropout_generator(seed,
+    state.step)`` unless ``dropout_masks`` (``{head: (mask0, mask1)}``)
+    gives them. ``step.loss_fn(batch, dropout_masks=None, step=0)`` is the
+    forward alone: (loss, ce, se)."""
+    if heads not in HEADS:
+        raise ValueError(f"heads must be one of {HEADS}, got {heads!r}")
+    if reg_loss not in REG_LOSSES:
+        raise ValueError(f"reg_loss must be one of {REG_LOSSES}, got {reg_loss!r}")
+    dev = model_device(model, device)
+
+    def loss_fn(batch, dropout_masks=None, step=0):
+        b = {k: _as_device(batch[k], dev) for k in _IMAGE_KEYS}
+        x = normalize_images(b["images"], b["flip"])
+        gen = None if dropout_masks else dropout_generator(seed, step, dev)
+        out_cls, out_reg = model(x, mode="image", train=True,
+                                 dropout_masks=dropout_masks, generator=gen)
+        logp = F.log_softmax(out_cls.float(), dim=-1)
+        ce = _masked_mean(-logp.gather(1, b["cls"].long()[:, None])[:, 0],
+                          b["valid"])
+        targets = b["reg"].float()
+        se_each = (out_reg[:, 0].float() - targets) ** 2
+        if reg_loss == "weighted_mse":
+            se_each = count_weights(targets) * se_each
+        se = _masked_mean(se_each, b["valid"])
+        loss = {"both": ce + se, "cls": ce, "reg": se}[heads]
+        return loss, ce, se
+
+    def step(state, batch, dropout_masks=None):
+        loss, ce, se = loss_fn(batch, dropout_masks, state.step)
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        state.apply_gradients()
+        ce, se = ce.detach(), se.detach()
+        return state, {"loss_cls": ce, "loss_reg": se, "loss": ce + se}
+
+    step.loss_fn = loss_fn
+    return step
+
+
+def make_image_infer_step(model: MILNet, device=None):
+    """``(images u8 [B,H,W,3], flip [B]) -> (softmax probs [B, 7], counts
+    [B])``, f32 device tensors: the image mode on running statistics."""
+    dev = model_device(model, device)
+
+    @torch.no_grad()
+    def infer(images, flip):
+        x = normalize_images(_as_device(images, dev), _as_device(flip, dev))
+        out_cls, out_reg = model(x, mode="image")
+        return torch.softmax(out_cls.float(), dim=-1), out_reg[:, 0].float()
+
+    return infer

@@ -1,9 +1,11 @@
-"""Host-side epoch orchestration of the stage-2 MIL cycle.
+"""Host-side epoch orchestration of stage 1 (image counting) and the
+stage-2 MIL cycle.
 
 The steps (train/steps.py) do the math on the device; the host loop owns
-the data-dependent control flow: the per-epoch sweep and selection, the
-tile batches, validation and checkpointing. Single-process: the multi-host
-split of the sweep comes with the ``parallel/`` slice of the port.
+the data-dependent control flow: the batches, stage 1's hard-example
+resampling, stage 2's per-epoch sweep and selection, validation and
+checkpointing. Single-process: the multi-host split comes with the
+``parallel/`` slice of the port.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import torch
 from cellsegmentation_tpu_torch import infer
 from cellsegmentation_tpu_torch.core.device import model_device
 from cellsegmentation_tpu_torch.data.batches import BatchIterator
-from cellsegmentation_tpu_torch.evaluate import evaluate_tile
+from cellsegmentation_tpu_torch.evaluate import evaluate_image, evaluate_tile
 from cellsegmentation_tpu_torch.models.milnet import MILNet
 from cellsegmentation_tpu_torch.ops.infer_engine import pick_calib_images
 from cellsegmentation_tpu_torch.ops.tiles import tile_grid
@@ -27,10 +29,23 @@ from cellsegmentation_tpu_torch.train.checkpoint import save_checkpoint
 from cellsegmentation_tpu_torch.train.schedules import make_schedule
 from cellsegmentation_tpu_torch.train.state import TrainState, create_train_state
 from cellsegmentation_tpu_torch.train.steps import (
+    make_image_infer_step,
+    make_image_train_step,
     make_stack_tile_infer_step,
     make_tile_train_step,
 )
 from cellsegmentation_tpu_torch.utils.logging import RunLogger
+
+
+@dataclasses.dataclass
+class Stage1Result:
+    state: TrainState
+    last_metrics: Optional[tuple] = None  # (mAP, mse, qwk)
+    # per epoch: host seconds of the train steps ("train") and of
+    # validation plus hard-example scoring ("val"; each ends in a
+    # device->host read), the steps taken ("steps") and the metric means
+    # ("loss_cls", "loss_reg", "loss")
+    epoch_stats: list = dataclasses.field(default_factory=list)
 
 
 @dataclasses.dataclass
@@ -70,6 +85,153 @@ class _MetricsPipe:
     def means(self) -> dict:
         self._drain()
         return {k: v / max(self.n, 1) for k, v in self.sums.items()}
+
+
+def _restore_optimizer(state: TrainState, resume_opt_state) -> None:
+    """Load a checkpoint's optimizer state; one another optimizer or stage
+    wrote is refused with a warning, and the run goes on with fresh state."""
+    if resume_opt_state is None:
+        return
+    try:
+        state.optimizer.load_state_dict(resume_opt_state)
+    except ValueError as e:
+        warnings.warn(
+            "checkpoint optimizer state does not match this run's "
+            f"optimizer ({e}); continuing with fresh optimizer state",
+            stacklevel=3,
+        )
+
+
+def train_stage1(
+    model: MILNet,
+    train_source,
+    val_source,
+    *,
+    epochs: int = 50,
+    batch_size: int = 48,
+    lr: float = 5e-4,
+    weight_decay: float = 1e-4,
+    scheduler: Optional[str] = None,
+    test_every: int = 1,
+    heads: str = "both",
+    reg_loss: str = "mse",
+    hard_threshold: Optional[float] = None,
+    encoder_name: str = "resnet50",
+    output_dir: Optional[str] = None,
+    logger: Optional[RunLogger] = None,
+    seed: int = 42,
+    last_epoch: int = 0,
+    resume_opt_state: Optional[dict] = None,
+    device=None,
+) -> Stage1Result:
+    """Stage-1 image-count training: CE(cls) + MSE(reg) on whole images,
+    the encoder and both heads in train mode.
+
+    Per epoch: the shuffled batches through the image train step; every
+    ``test_every`` epochs validation (0, MSE, QWK) through
+    ``inference_image``; with ``hard_threshold``, the training pool scored
+    and every sample whose rounded count misses its label by at least that
+    much duplicated in place of as many random rows (the next epoch's
+    iterator is seeded by the epoch); with ``output_dir``, an ``"image"``
+    (pt1) checkpoint.
+
+    The model carries the weights and is trained in place; it must live on
+    ``device`` (the CUDA card unless ``device="cpu"``). The arguments are
+    the JAX package's, without ``variables``, ``mesh`` and
+    ``save_every_epoch`` (a checkpoint is written every epoch). Adam without a
+    scheduler, SGD with one. Resuming (``last_epoch``) moves the step to
+    ``last_epoch * steps_per_epoch`` and the shuffle stream past the done
+    epochs; the dropout masks follow the step, so the run continues as a
+    straight one would.
+    """
+    dev = model_device(model, device)
+    logger = logger or RunLogger(output_dir or "./output")
+    it = BatchIterator(len(train_source), batch_size, shuffle=True, seed=seed)
+    steps_per_epoch = len(it)
+    schedule = make_schedule(scheduler, lr, epochs, steps_per_epoch)
+    stage = {"both": "image", "cls": "image_cls", "reg": "image_reg"}[heads]
+    state = create_train_state(model, stage, schedule,
+                               use_sgd=scheduler is not None,
+                               weight_decay=weight_decay, device=dev)
+    if last_epoch:
+        state.step = last_epoch * steps_per_epoch
+        it.fast_forward(last_epoch)
+    _restore_optimizer(state, resume_opt_state)
+    step_fn = make_image_train_step(model, heads=heads, reg_loss=reg_loss,
+                                    seed=seed, device=dev)
+    infer_fn = make_image_infer_step(model, device=dev)
+
+    def save(epoch):
+        save_checkpoint(output_dir, "image", epoch, encoder_name,
+                        model.state_dict(), state.optimizer.state_dict(),
+                        step=state.step)
+
+    last_metrics = None
+    epoch_stats = []
+    for epoch in range(1 + last_epoch, epochs + 1):
+        try:
+            t0 = time.perf_counter()
+            pipe = _MetricsPipe()
+            cls_labels = train_source.cls_labels  # after any resampling
+            for sel, valid in it:
+                batch = {"images": train_source.gather_images(sel),
+                         "flip": train_source.flip_code[sel],
+                         "cls": cls_labels[sel],
+                         "reg": train_source.labels[sel].astype(np.float32),
+                         "valid": valid}
+                state, metrics = step_fn(state, batch)
+                pipe.push(metrics)
+            means = pipe.means()  # waits for the last step
+            t1 = time.perf_counter()
+            logger.info(
+                f"[stage1 epoch {epoch}/{epochs}] "
+                + " | ".join(f"{k}: {v:.4f}" for k, v in means.items())
+            )
+            logger.csv_row(
+                "image-training",
+                ["epoch", "image_cls_loss", "image_reg_loss", "image_loss"],
+                [epoch, means.get("loss_cls", 0), means.get("loss_reg", 0),
+                 means.get("loss", 0)],
+            )
+            logger.scalars({f"image/{k}": v for k, v in means.items()}, epoch)
+
+            if (val_source is not None and len(val_source) > 0
+                    and epoch % test_every == 0):
+                categories, counts = infer.inference_image(
+                    val_source, infer_fn, batch_size=batch_size)
+                m = evaluate_image(val_source.labels, categories, counts)
+                last_metrics = m
+                logger.info(f"  val mAP: {m[0]} | MSE: {m[1]:.3f} | QWK: {m[2]:.4f}")
+                logger.csv_row("image-validation", ["epoch", "image_map", "mse", "qwk"],
+                               [epoch, *m])
+                logger.scalars({"val/mse": m[1], "val/qwk": m[2]}, epoch)
+
+            if hard_threshold is not None:
+                _, counts = infer.inference_image(train_source, infer_fn,
+                                            batch_size=batch_size)
+                hard = np.nonzero(
+                    np.abs(counts - train_source.labels) >= hard_threshold)[0]
+                if len(hard):
+                    rows = train_source.snapshot_rows(hard)
+                    train_source.random_delete(len(hard))
+                    train_source.append_rows(*rows)
+                    it = BatchIterator(len(train_source), batch_size,
+                                       shuffle=True, seed=seed + epoch)
+                    logger.info(f"  resampled {len(hard)} hard examples")
+            t2 = time.perf_counter()
+            epoch_stats.append({"train": t1 - t0, "val": t2 - t1,
+                                "steps": pipe.n, **means})
+
+            if output_dir:
+                save(epoch)
+        except KeyboardInterrupt:
+            if output_dir:
+                save(epoch)
+            logger.info(f"interrupted at epoch {epoch}; checkpoint saved")
+            raise
+
+    return Stage1Result(state=state, last_metrics=last_metrics,
+                        epoch_stats=epoch_stats)
 
 
 def train_stage2(
@@ -140,15 +302,7 @@ def train_stage2(
     state = create_train_state(model, "tile", schedule,
                                use_sgd=scheduler is not None,
                                weight_decay=weight_decay, device=dev)
-    if resume_opt_state is not None:
-        try:
-            state.optimizer.load_state_dict(resume_opt_state)
-        except ValueError as e:  # another optimizer or stage wrote it
-            warnings.warn(
-                "checkpoint optimizer state does not match this run's "
-                f"optimizer ({e}); continuing with fresh optimizer state",
-                stacklevel=2,
-            )
+    _restore_optimizer(state, resume_opt_state)
 
     n_t = coords.shape[0]
 

@@ -7,10 +7,12 @@ The inverse of the JAX package's torchvision converter:
 - BatchNorm ``scale/bias`` + stats ``mean/var`` become
   ``weight/bias/running_mean/running_var``;
 - encoder blocks ``layer<s>_<b>/ConvBNAct_<i>`` become ``layer<s>.<b>.conv<i+1>``
-  / ``bn<i+1>``, the projection ``downsample.0/1``.
+  / ``bn<i+1>``, the projection ``downsample.0/1``;
+- an image head's ``BatchNorm_0`` / ``Dense_0`` / ``BatchNorm_1`` /
+  ``Dense_1`` become its ``.1`` / ``.4`` / ``.5`` / ``.7``.
 
-Subtrees the port does not have yet (the image heads, ``seg_decoder``) are
-skipped and returned by name, never dropped silently.
+Subtrees the port does not have yet (``seg_decoder``) are skipped and
+returned by name, never dropped silently.
 """
 
 from __future__ import annotations
@@ -60,15 +62,29 @@ def _encoder(params: dict, stats: dict, prefix: str) -> dict:
     return sd
 
 
+def _dense(sd: dict, prefix: str, params: dict) -> None:
+    sd[f"{prefix}.weight"] = _t(np.asarray(params["kernel"], np.float32).T)
+    sd[f"{prefix}.bias"] = _t(params["bias"])
+
+
+_IMAGE_HEAD = (("BatchNorm_0", "1"), ("Dense_0", "4"), ("BatchNorm_1", "5"),
+               ("Dense_1", "7"))
+
+
 def jax_to_state_dict(variables: dict) -> tuple[dict, list[str]]:
     """JAX MILNet variables -> (port state_dict, skipped subtree names)."""
     params = variables["params"]
     stats = variables.get("batch_stats", {})
     sd = _encoder(params["encoder"], stats["encoder"], "encoder.")
-    dense = params["fc_tile"]["Dense_0"]
-    sd["fc_tile.1.weight"] = _t(np.asarray(dense["kernel"], np.float32).T)
-    sd["fc_tile.1.bias"] = _t(dense["bias"])
-    skipped = sorted(k for k in params if k not in ("encoder", "fc_tile"))
+    _dense(sd, "fc_tile.1", params["fc_tile"]["Dense_0"])
+    heads = ("fc_image_cls", "fc_image_reg")
+    for head in heads:
+        for name, idx in _IMAGE_HEAD:
+            if name.startswith("Dense"):
+                _dense(sd, f"{head}.{idx}", params[head][name])
+            else:
+                _bn(sd, f"{head}.{idx}", params[head][name], stats[head][name])
+    skipped = sorted(k for k in params if k not in ("encoder", "fc_tile", *heads))
     return sd, skipped
 
 

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch/CUDA port (cellsegmentation_tpu_torch).
 
-Drives the port's stage-2 paths on one CUDA card, at the full width of
-ResNet-50 MILNet on 299^2 images (32-px tiles, interval 20, 225 tiles per
-image), with seeded random weights and seeded synthetic LYSTO images:
+Drives the port's stage-1 and stage-2 paths on one CUDA card, at the full
+width of ResNet-50 MILNet on 299^2 images (stage 2: 32-px tiles, interval
+20, 225 tiles per image), with seeded random weights and seeded synthetic
+LYSTO images:
 
 1. device: the card's name and power limit, the TF32 flags;
 2. build: csrc/q8_gemm_sm90.cu, the wgmma/TMA core of all four kernels,
@@ -31,10 +32,19 @@ image), with seeded random weights and seeded synthetic LYSTO images:
    the CLI's 40,960-tile batch; one train step on the card against the
    same step through the port on the CPU, and two planted faults (wrong
    flips, a transposed gather) that this gate must reject;
-7. profile: device time by kernel over one sweep step: 29 launches of the
+7. stage1: ``train_stage1`` for 2 epochs at the CLI's defaults (batch 48,
+   Adam, lr 5e-4) on 232 augmented samples, which launches no hand-written
+   kernel; the train step's images/s, peak memory and MFU at batch 48;
+   ``inference_image`` images/s at batch 128 with ``cls_limit``; one f32
+   image train step on the card against the CPU under injected dropout
+   masks, and three planted faults (an unbiased running variance, dropout
+   scaled by keep, flips dropped) that this gate must reject; the pt1
+   checkpoint loaded into a fresh model (equal state, bit-equal counts)
+   and a q8dg sweep batch on its encoder; a profile of one train step;
+8. profile: device time by kernel over one sweep step: 29 launches of the
    wgmma kernel under its own name and no other hand-written kernel;
-8. one JSON line with every kernel's launches and times;
-9. last line: {"ok": true, "device": {...}}.
+9. one JSON line with every kernel's launches and times;
+10. last line: {"ok": true, "device": {...}}.
 
 Run from the repository root: ``python3 chip_smoke.py`` (one card). Exits
 non-zero, printing no result, when a phase fails or no card is present.
@@ -43,6 +53,7 @@ non-zero, printing no result, when a phase fails or no card is present.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import json
 import math
@@ -116,6 +127,41 @@ TRAIN_CHECK_TILES = 256
 # the CLI's stage-2 tile batch, and the timed train steps at that width
 TILE_BATCH = 40960
 TRAIN_RATE_STEPS = 5
+# [stage1]: the CLI's defaults, 2 epochs on 64 base images (kfold 10: 58
+# train x 4 flips = 232 samples, 6 validation images)
+STAGE1_BATCH, STAGE1_LR, STAGE1_EPOCHS = 48, 5e-4, 2
+BF16_PEAK_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate, FLOP/s
+# The stage-1 card-vs-CPU gate: one image train step of the full-width
+# model in f32 (TF32 off, phase 1) on 8 images, the same weights and the
+# same injected dropout masks on both devices, SGD at lr 5e-4 so an
+# update is lr x the gradient. Readings: the loss's relative gap, the
+# cosine of all trainable gradients, the largest gap of a running
+# statistic over its tensor's largest value, and the largest gap of an
+# updated weight over the largest update. Train-mode BatchNorm over 8
+# images amplifies rounding (the heads' BatchNorm1d normalizes each
+# feature by 8 values), so even in f32 the card and the CPU part by loss
+# 2.07e-5, cosine 0.999813, statistics 4.19e-5 and update 1.94e-2 (two H100
+# runs alike). The planted faults read loss 4.33e-2 / 4.10e-2 (dropout
+# scaled by keep / flips dropped) and statistics 0.107 (the unbiased
+# running variance, which moves no loss). The clean step passes each limit
+# with 2.7x (cosine) to 24x (statistics) of room, and each fault fails one
+# by 100x or more:
+S1_LOSS_RTOL = 2e-4
+S1_GRAD_MIN_COS = 0.9995
+S1_STAT_RTOL = 1e-3
+S1_WEIGHT_RTOL = 0.1
+S1_CHECK_IMAGES = 8
+S1_CHECK_LR = 5e-4
+
+
+# kernel kinds of a profile, by words of the kernel's name, first match
+PROFILE_KINDS = (
+    ("hand-written int8 GEMMs", ("q8_wgmma",)),
+    ("BatchNorm (cuDNN)", ("batchnorm", "batch_norm", "bn_fw", "bn_bw")),
+    ("convs (cuDNN, CUTLASS)", ("fprop", "dgrad", "wgrad", "xmma", "cutlass",
+                                "cudnn::cnn", "implicit_gemm", "convolution")),
+    ("host-device copies", ("Memcpy", "Memset")),
+)
 
 
 class PhaseError(RuntimeError):
@@ -595,7 +641,7 @@ def phase_slice(args, card, model, step, src):
     check(e_g.mean() <= Q8DG_EXACT_MEAN and e_g.mean() <= e_c.mean() + CARD_CPU_MEAN,
           f"q8dg sits {e_g.mean():.5f} from the exact graph on the card "
           f"(CPU: {e_c.mean():.5f})")
-    return launches, probs, ips
+    return launches, probs, ips, float(e_g.mean())
 
 
 def _warm_flips(step, src, image_batch):
@@ -828,41 +874,366 @@ def phase_train(args, card, base, src):
         check(not ok, f"the train-step gate passes a planted fault: {fault}")
 
 
+def stage1_step_reading(model, batch, masks, dev):
+    """One stage-1 train step (SGD at S1_CHECK_LR, no scheduler) on ``model``
+    under the injected dropout ``masks``: (loss, gradient of every trainable
+    parameter, running statistics, the parameters' update), the last three
+    as f64 CPU tensors."""
+    import torch
+
+    from cellsegmentation_tpu_torch.train.schedules import make_schedule
+    from cellsegmentation_tpu_torch.train.state import create_train_state
+    from cellsegmentation_tpu_torch.train.steps import make_image_train_step
+
+    state = create_train_state(model, "image", make_schedule(None, S1_CHECK_LR, 1, 1),
+                               use_sgd=True, device=dev)
+    step = make_image_train_step(model, device=dev)
+    params = [p for p in model.parameters() if p.requires_grad]
+
+    def flat(ts):
+        return torch.cat([t.detach().double().cpu().flatten() for t in ts])
+
+    before = flat(params)
+    masks = {k: tuple(m.to(dev) for m in v) for k, v in masks.items()}
+    _, metrics = step(state, batch, dropout_masks=masks)
+    stats = {k: v.detach().double().cpu() for k, v in model.state_dict().items()
+             if "running_" in k}
+    return (float(metrics["loss"]), flat(p.grad for p in params), stats,
+            flat(params) - before)
+
+
+def stage1_gap(got, want):
+    """(loss rel, gradient cosine, statistic gap, update gap, within the
+    S1_* limits) of a stage1_step_reading against the reference one."""
+    (lg, gg, sg, ug), (lc, gc, sc, uc) = got, want
+    rel = abs(lg - lc) / abs(lc)
+    cos = float(gg @ gc / (gg.norm() * gc.norm()))
+    stat = max(float((sg[k] - sc[k]).abs().max() / sc[k].abs().max()) for k in sc)
+    update = float((ug - uc).abs().max() / uc.abs().max())
+    ok = (rel <= S1_LOSS_RTOL and cos >= S1_GRAD_MIN_COS and stat <= S1_STAT_RTOL
+          and update <= S1_WEIGHT_RTOL)
+    return rel, cos, stat, update, ok
+
+
+@contextlib.contextmanager
+def planted_stage1_fault(fault, model):
+    """A fault planted in the port's stage-1 path for the gate to reject:
+    ``"unbiased running variance"`` (torch's own update rule in train-mode
+    BatchNorm), ``"dropout scaled by keep"`` (x * keep for x / keep)."""
+    from cellsegmentation_tpu_torch.models import common
+
+    if fault == "unbiased running variance":
+        orig = common.batch_norm
+
+        def unbiased(x, bn, train):
+            if not train:
+                return orig(x, bn, train)
+            return common.F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
+                                       bn.bias, True, 1 - common.BN_MOMENTUM, bn.eps)
+
+        common.batch_norm = unbiased
+        try:
+            yield
+        finally:
+            common.batch_norm = orig
+    else:
+        heads = (model.fc_image_cls, model.fc_image_reg)
+        for h in heads:  # x / (1 - rate') == x * keep
+            h.RATES = tuple(1 - 1 / (1 - r) for r in type(h).RATES)
+        try:
+            yield
+        finally:
+            for h in heads:
+                del h.RATES
+
+
+def _stage1_sources(args):
+    from cellsegmentation_tpu_torch.data import LystoDataSource, make_synthetic_arrays
+
+    a = make_synthetic_arrays(args.images, args.hw, 30, seed=args.seed + 2)
+    train = LystoDataSource.from_arrays(a["images"], a["organs"], a["counts"],
+                                        kfold=10, augment=True, seed=args.seed)
+    val = LystoDataSource.from_arrays(a["images"], a["organs"], a["counts"],
+                                      train=False, kfold=10)
+    return train, val
+
+
+def _stage1_batch(src, sel):
+    import numpy as np
+
+    return {"images": src.gather_images(sel), "flip": src.flip_code[sel],
+            "cls": src.cls_labels[sel], "reg": src.labels[sel].astype(np.float32),
+            "valid": np.ones(len(sel), bool)}
+
+
+def _step_flops(model, batch):
+    """Model FLOPs of one train step: the convs' and Dense layers' FLOPs of
+    one forward (torch.utils.flop_counter, 2 per multiply-add) x 3."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from cellsegmentation_tpu_torch.data.batches import normalize_images
+
+    dev = next(model.parameters()).device
+    x = normalize_images(torch.as_tensor(batch["images"]).to(dev),
+                         torch.as_tensor(batch["flip"]).to(dev))
+    probe = copy.deepcopy(model)  # the forward moves BatchNorm statistics
+    with torch.no_grad(), FlopCounterMode(display=False) as fc:
+        probe(x, mode="image", train=True)
+    return 3 * fc.get_total_flops()
+
+
+def phase_stage1(args, card, src, slice_gap):
+    """Stage 1 on the card: train_stage1, the step's rate, inference_image,
+    the card-vs-CPU step gate with its planted faults, the pt1 handoff."""
+    import numpy as np
+    import torch
+
+    from cellsegmentation_tpu_torch import infer
+    from cellsegmentation_tpu_torch.core.dtypes import F32_POLICY
+    from cellsegmentation_tpu_torch.kernels import q8_gemm as tq
+    from cellsegmentation_tpu_torch.models import build_model
+    from cellsegmentation_tpu_torch.ops.infer_engine import pick_calib_images
+    from cellsegmentation_tpu_torch.train import checkpoint as ckpt_mod
+    from cellsegmentation_tpu_torch.train.schedules import make_schedule
+    from cellsegmentation_tpu_torch.train.state import create_train_state
+    from cellsegmentation_tpu_torch.train.steps import (
+        make_image_infer_step,
+        make_image_train_step,
+        make_tile_infer_step,
+    )
+    from cellsegmentation_tpu_torch.train.trainers import train_stage1
+    from cellsegmentation_tpu_torch.utils.logging import RunLogger
+
+    train, val = _stage1_sources(args)
+    n_steps = math.ceil(len(train) / STAGE1_BATCH)
+    check(len(train) == 232 and len(val) == 6, f"sources {len(train)} / {len(val)}")
+    model = build_model("resnet50", device="cuda", seed=args.seed)
+    with tempfile.TemporaryDirectory() as out:
+        # 1) train_stage1, counted: stage 1 reaches no hand-written kernel
+        tq.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = train_stage1(model, train, val, epochs=STAGE1_EPOCHS,
+                           batch_size=STAGE1_BATCH, lr=STAGE1_LR, seed=args.seed,
+                           output_dir=out, device="cuda",
+                           logger=RunLogger(out, run_name="stage1", tensorboard=False))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in tq.KERNELS}
+        check(not any(launches.values()), f"stage 1 launched {launches}")
+        print(f"[stage1] train_stage1: {STAGE1_EPOCHS} epochs of {n_steps} steps "
+              f"(batch {STAGE1_BATCH}, {len(train)} samples; the last batch "
+              f"{len(train) - (n_steps - 1) * STAGE1_BATCH} valid rows) in {wall:.1f} s "
+              f"on {card}; hand-written kernel launches {launches}")
+        for e, st in enumerate(res.epoch_stats, 1):
+            check(all(math.isfinite(st[k]) for k in ("loss_cls", "loss_reg", "loss")),
+                  f"epoch {e} losses {st}")
+            check(st["steps"] == n_steps, f"epoch {e}: {st['steps']} steps")
+            print(f"[stage1] epoch {e}: loss_cls {st['loss_cls']:.6f} loss_reg "
+                  f"{st['loss_reg']:.6f} loss {st['loss']:.6f}; train {st['train']:.4f} s "
+                  f"({st['steps'] * STAGE1_BATCH / st['train']:.1f} images/s), "
+                  f"validation {st['val']:.4f} s")
+        check(res.last_metrics is not None and all(math.isfinite(m) for m in res.last_metrics),
+              f"validation {res.last_metrics}")
+        print(f"[stage1] validation (mAP, MSE, QWK) {res.last_metrics}")
+        ckpt_path = f"{out}/pt1_{STAGE1_EPOCHS}epochs.ckpt"
+        ck = ckpt_mod.load_checkpoint(ckpt_path)
+        check(ck["mode"] == "image" and ck["epoch"] == STAGE1_EPOCHS,
+              f"checkpoint {ck['mode']} epoch {ck['epoch']}")
+        print(f"[stage1] wrote {ckpt_path.rsplit('/', 1)[-1]} ({len(ck['state_dict'])} "
+              f"entries, step {ck['step']})")
+
+    # 2) the train step's rate at batch 48, on a copy of the trained model
+    rate_model = copy.deepcopy(model)
+    state = create_train_state(rate_model, "image", make_schedule(None, STAGE1_LR, 1, 1),
+                               device="cuda")
+    step = make_image_train_step(rate_model, seed=args.seed, device="cuda")
+    batch = _stage1_batch(train, np.arange(STAGE1_BATCH))
+    flops = _step_flops(rate_model, batch)
+    for _ in range(2):
+        state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    secs = []
+    for _ in range(TRAIN_RATE_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        check(math.isfinite(float(metrics["loss"])), "non-finite stage-1 loss")
+        secs.append(time.perf_counter() - t0)
+    med = float(np.median(secs))
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[stage1] train step at batch {STAGE1_BATCH}, {len(secs)} steps after 2 warm-up "
+          f"in {[round(x, 4) for x in secs]} s: median {med:.4f} s, "
+          f"{STAGE1_BATCH / med:.1f} images/s; peak memory {peak / 2**30:.2f} GiB; "
+          f"{flops / 1e12:.3f} TFLOP a step (3 x the forward's conv and Dense FLOPs): "
+          f"MFU {100 * flops / med / BF16_PEAK_FLOPS:.2f}% of {BF16_PEAK_FLOPS / 1e12:.0f} "
+          f"TFLOP/s bf16, on {card}")
+    del rate_model, state, step
+
+    # 3) inference_image over the [setup] source's 256 samples at batch 128
+    infer_fn = make_image_infer_step(model, device="cuda")
+    infer.inference_image(src, infer_fn, batch_size=128, cls_limit=True)
+    torch.cuda.synchronize()
+    secs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        cats, counts = infer.inference_image(src, infer_fn, batch_size=128, cls_limit=True)
+        secs.append(time.perf_counter() - t0)
+    check(cats.shape == counts.shape == (len(src),), f"inference_image {cats.shape}")
+    check(bool(((cats >= 0) & (cats < 7)).all() and (counts >= 0).all()), "bad counts")
+    ips = len(src) / float(np.median(secs))
+    print(f"[stage1] inference_image, {len(src)} samples at batch 128, cls_limit: "
+          f"{[round(x, 4) for x in secs]} s, median {ips:.1f} images/s on {card}; "
+          f"counts {int(counts.min())}..{int(counts.max())}, classes {sorted(set(cats.tolist()))}")
+
+    # 4) one f32 train step, card against CPU, and the planted faults
+    pick = np.asarray([0, 58, 116, 174, 1, 59, 117, 175])[:S1_CHECK_IMAGES]
+    check(sorted(set(train.flip_code[pick].tolist())) == [0, 1, 2, 3], "check flips")
+    batch = _stage1_batch(train, pick)
+    cpu_model = build_model("resnet50", policy=F32_POLICY, device="cpu", seed=args.seed)
+    gen = torch.Generator().manual_seed(args.seed)
+    masks = {k: getattr(cpu_model, k).draw_masks(len(pick), gen)
+             for k in ("fc_image_cls", "fc_image_reg")}
+    t0 = time.perf_counter()
+    cpu = stage1_step_reading(cpu_model, batch, masks, "cpu")
+    cpu_s = time.perf_counter() - t0
+
+    def card_reading(b=batch, fault=None):
+        m = build_model("resnet50", policy=F32_POLICY, device="cuda", seed=args.seed)
+        if fault is None:
+            return stage1_step_reading(m, b, masks, "cuda")
+        with planted_stage1_fault(fault, m):
+            return stage1_step_reading(m, b, masks, "cuda")
+
+    limits = (f"limits rel {S1_LOSS_RTOL}, cos {S1_GRAD_MIN_COS}, stat {S1_STAT_RTOL}, "
+              f"update {S1_WEIGHT_RTOL}")
+    # every reading first, then the verdicts, so one run shows them all
+    planted = {"unbiased running variance": (batch, "unbiased running variance"),
+               "dropout scaled by keep": (batch, "dropout scaled by keep"),
+               "flipped images fed unflipped": (dict(batch, flip=np.zeros_like(batch["flip"])),
+                                                None)}
+    gaps = {None: stage1_gap(card_reading(), cpu)}
+    gaps.update({name: stage1_gap(card_reading(b, fault), cpu)
+                 for name, (b, fault) in planted.items()})
+    rel, cos, stat, weight, ok = gaps[None]
+    print(f"[stage1] one f32 step of {len(pick)} images (flips "
+          f"{train.flip_code[pick].tolist()}), card vs CPU ({cpu_s:.1f} s on the CPU): "
+          f"loss {cpu[0]:.6f}, rel {rel:.2e}; gradient cosine {cos:.9f}; running "
+          f"statistics gap {stat:.2e}; updated weights' gap over the largest update "
+          f"{weight:.2e} ({limits})")
+    for name in planted:
+        rel, cos, stat, weight, bad_ok = gaps[name]
+        print(f"[stage1] planted fault ({name}) vs CPU: loss rel {rel:.2e}, cosine "
+              f"{cos:.9f}, statistics {stat:.2e}, update {weight:.2e}: "
+              f"{'passes' if bad_ok else 'rejected'}")
+    check(ok, "stage-1 step card vs CPU outside the limits")
+    for name in planted:
+        check(not gaps[name][-1], f"the stage-1 gate passes a planted fault: {name}")
+    del cpu_model
+
+    # 5) the pt1 handoff: a fresh model from the file, then a q8dg batch
+    fresh = build_model("resnet50", device="cuda", seed=args.seed)
+    check(not torch.equal(fresh.encoder.conv1.weight, model.encoder.conv1.weight),
+          "stage 1 did not move the encoder")
+    ckpt_mod.restore_into(fresh, ck, ckpt_mod.STAGE_SAVE_PARTITIONS["image"])
+    sd_t, sd_f = model.state_dict(), fresh.state_dict()
+    check(sd_t.keys() == sd_f.keys() and all(torch.equal(sd_t[k], sd_f[k]) for k in sd_t),
+          "the loaded pt1 model's state differs from the trained one")
+    got = infer.inference_image(src, make_image_infer_step(fresh, device="cuda"),
+                                batch_size=128, cls_limit=True)
+    check(np.array_equal(got[0], cats) and np.array_equal(got[1], counts),
+          "inference_image differs between the trained and the loaded model")
+    quiet_head(fresh)
+    images = src.images[: args.image_batch]
+    sweep = make_tile_infer_step(fresh, args.tile, _coords(args), engine="auto",
+                                 calib_images=pick_calib_images(train.images), device="cuda")
+    exact = make_tile_infer_step(fresh, args.tile, _coords(args), engine="flax",
+                                 device="cuda")
+    check(sweep.resolved_engine == "q8dg", f"handoff engine {sweep.resolved_engine}")
+    flip = np.zeros(len(images), np.int32)
+    tq.reset_launch_counts()
+    p_q = sweep(images, flip).cpu().numpy()
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in tq.KERNELS}
+    check(launches == {"q8_matmul": 8, "q8_matmul_px": 20, "q8_conv3_tap": 1,
+                       "q8_conv3_rowtap": 0}, f"handoff sweep launches {launches}")
+    e = np.abs(_logodds(p_q) - _logodds(exact(images, flip).cpu().numpy()))
+    check(bool(np.isfinite(p_q).all()), "non-finite handoff probs")
+    print(f"[stage1] pt1 into a fresh model: state equal, inference_image bit-equal; "
+          f"q8dg sweep of {len(images)} images on the stage-1 encoder (head x "
+          f"{HEAD_SCALE}), launches {launches}; q8dg vs the exact per-tile graph, "
+          f"log-odds: max {e.max():.5f} mean {e.mean():.6f} (random-init weights in "
+          f"[slice]: mean {slice_gap:.6f})")
+
+    # 6) the profile of one stage-1 train step
+    prof_model = copy.deepcopy(model)
+    state = create_train_state(prof_model, "image", make_schedule(None, STAGE1_LR, 1, 1),
+                               device="cuda")
+    step = make_image_train_step(prof_model, seed=args.seed, device="cuda")
+    batch = _stage1_batch(train, np.arange(STAGE1_BATCH))
+    state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    _profile_rows("stage1", f"one train step of {STAGE1_BATCH} images",
+                  lambda: step(state, batch), top=12)
+
+
 def _ranks(v):
     import numpy as np
 
     return np.argsort(np.argsort(v, kind="stable"), kind="stable")
 
 
-def phase_profile(step, images):
-    """Device time by kernel over one sweep step."""
-    import numpy as np
+def _profile_rows(tag, what, fn, top=15):
+    """Device time by kernel name over one call of ``fn`` after 5
+    unprofiled ones: prints the step's wall time, the device's busy share
+    and the top kernels; returns ([(ms, count, name)], busy ms)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    flip = np.zeros(len(images), np.int32)
-    step(images, flip)
+    fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(5):
-        step(images, flip)
+        fn()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3 / 5  # unprofiled step time
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        step(images, flip)
+        fn()
         torch.cuda.synchronize()
     rows = []
     for e in prof.key_averages():
         t = getattr(e, "self_device_time_total", 0) or 0
-        if t > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+        # "Optimizer.step#Adam.step" and the like are annotations spanning
+        # kernels already counted, not kernels
+        if (t > 0 and e.device_type == torch.autograd.DeviceType.CUDA
+                and not e.key.startswith(("Optimizer.", "ProfilerStep#"))):
             rows.append((t / 1e3, e.count, e.key))
     busy = sum(r[0] for r in rows)
     check(busy > 0, "the profiler recorded no device time")
-    print(f"[profile] one flip-free step of {len(images)} images: "
-          f"{wall:.2f} ms unprofiled, device busy {busy:.2f} ms profiled "
-          f"({100 * busy / wall:.1f}% of the step)")
-    for ms, n, key in sorted(rows, reverse=True)[:15]:
-        print(f"[profile] {ms:8.3f} ms {n:4d}x {key[:110]}")
+    print(f"[{tag}] {what}: {wall:.2f} ms unprofiled, device busy {busy:.2f} ms "
+          f"profiled ({100 * busy / wall:.1f}% of the step)")
+    for ms, n, key in sorted(rows, reverse=True)[:top]:
+        print(f"[{tag}] {ms:8.3f} ms {n:4d}x {key[:110]}")
+    kinds = {}
+    for ms, n, key in rows:
+        kind = next((k for k, words in PROFILE_KINDS if any(w in key for w in words)),
+                    "elementwise and other")
+        kinds[kind] = kinds.get(kind, 0.0) + ms
+    print(f"[{tag}] device time by kind: " + "; ".join(
+        f"{k} {ms:.3f} ms ({100 * ms / busy:.1f}%)"
+        for k, ms in sorted(kinds.items(), key=lambda kv: -kv[1])))
+    return rows, busy
+
+
+def phase_profile(step, images):
+    """Device time by kernel over one sweep step."""
+    import numpy as np
+
+    flip = np.zeros(len(images), np.int32)
+    rows, busy = _profile_rows("profile", f"one flip-free step of {len(images)} images",
+                               lambda: step(images, flip))
     # the hand-written kernels by name: the wgmma core's, 8 q8_matmul + 20
     # q8_matmul_px + 1 q8_conv3_tap launches a step, and no other
     by_name = {}
@@ -950,7 +1321,8 @@ def main(argv=None) -> int:
         phase_seam(step, step_row, entry)
 
         phase = "slice"
-        launches, probs_auto, auto_ips = phase_slice(args, card, model, step, src)
+        launches, probs_auto, auto_ips, slice_gap = phase_slice(args, card, model,
+                                                                step, src)
 
         phase = "rowtap"
         row_launches = phase_rowtap(args, card, step, step_row, src, probs_auto,
@@ -958,6 +1330,9 @@ def main(argv=None) -> int:
 
         phase = "train"
         phase_train(args, card, base, src)
+
+        phase = "stage1"
+        phase_stage1(args, card, src, slice_gap)
 
         phase = "profile"
         phase_profile(step, src.images[: args.image_batch])

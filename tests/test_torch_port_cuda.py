@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, and the
+stage-1 train step against its CPU run, on the card.
 
 Marked ``cuda``: without a card these tests skip (the kernels have no CPU
 mode). This file imports no JAX, so it runs on a machine with the card:
@@ -225,3 +226,50 @@ def test_wgmma_core_refuses_what_it_does_not_take():
         tq.q8_conv3_rowtap(_ints(rng, (8, 64)).to(dev), _ints(rng, (128, 3 * 64)).to(dev),
                            b, ws, h_in=1, w_in=1, stride=1, c_in=64)
     assert all(f.launches == 0 for f in tq.KERNELS)
+
+
+@pytest.mark.cuda
+def test_image_train_step_card_matches_cpu():
+    """One f32 stage-1 train step (TF32 off) of a reduced-depth MILNet on 8
+    128^2 images, every flip code, under the same injected dropout masks:
+    the card against the CPU within chip_smoke.py's [stage1] limits, and
+    the three planted faults of that phase rejected."""
+    dev = _card()
+    import chip_smoke as cs
+
+    from cellsegmentation_tpu_torch.core.dtypes import F32_POLICY
+    from cellsegmentation_tpu_torch.models import Bottleneck, MILNet, ResNetEncoder
+    from cellsegmentation_tpu_torch.models.milnet import init_milnet
+
+    def model(device):
+        m = MILNet(ResNetEncoder(Bottleneck, (1, 1, 1, 1), policy=F32_POLICY),
+                   policy=F32_POLICY)
+        return init_milnet(m, seed=1).to(device)
+
+    rng = np.random.default_rng(3)
+    n = 8
+    counts = rng.integers(0, 40, n)
+    batch = {"images": rng.integers(0, 256, (n, 128, 128, 3)).astype(np.uint8),
+             "flip": (np.arange(n) % 4).astype(np.int32),
+             "cls": np.digitize(counts, [1, 6, 11, 21, 51, 201]),
+             "reg": counts.astype(np.float32), "valid": np.ones(n, bool)}
+    cpu_model = model("cpu")
+    gen = torch.Generator().manual_seed(0)
+    masks = {k: getattr(cpu_model, k).draw_masks(n, gen)
+             for k in ("fc_image_cls", "fc_image_reg")}
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cpu = cs.stage1_step_reading(cpu_model, batch, masks, "cpu")
+        card = cs.stage1_step_reading(model(dev), batch, masks, dev)
+        assert cs.stage1_gap(card, cpu)[-1], cs.stage1_gap(card, cpu)
+        for fault in ("unbiased running variance", "dropout scaled by keep"):
+            m = model(dev)
+            with cs.planted_stage1_fault(fault, m):
+                bad = cs.stage1_step_reading(m, batch, masks, dev)
+            assert not cs.stage1_gap(bad, cpu)[-1], (fault, cs.stage1_gap(bad, cpu))
+        unflipped = dict(batch, flip=np.zeros(n, np.int32))
+        bad = cs.stage1_step_reading(model(dev), unflipped, masks, dev)
+        assert not cs.stage1_gap(bad, cpu)[-1], ("flips dropped", cs.stage1_gap(bad, cpu))
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32

@@ -4,7 +4,8 @@
   ``chip_smoke.py`` or ``tools/sm90_tile_shapes.py`` imports ``jax``,
   ``flax`` or the JAX package.
 - Entry points run on the CUDA card by default: without one they raise,
-  unless the caller passes ``device="cpu"``.
+  unless the caller passes ``device="cpu"``; the CLIs, unless
+  ``CST_PLATFORM=cpu`` is set.
 - ``chip_smoke.py`` without a card (or without the package beside it) exits
   non-zero and prints no result line.
 """
@@ -22,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from cellsegmentation_tpu_torch.cli import test_count, train_image
 from cellsegmentation_tpu_torch.core.device import resolve_device
 from cellsegmentation_tpu_torch.data import LystoDataSource
 from cellsegmentation_tpu_torch.infer import sample_topk
@@ -31,11 +33,13 @@ from cellsegmentation_tpu_torch.ops.tiles import tile_grid
 from cellsegmentation_tpu_torch.train.schedules import make_schedule
 from cellsegmentation_tpu_torch.train.state import create_train_state
 from cellsegmentation_tpu_torch.train.steps import (
+    make_image_infer_step,
+    make_image_train_step,
     make_stack_tile_infer_step,
     make_tile_infer_step,
     make_tile_train_step,
 )
-from cellsegmentation_tpu_torch.train.trainers import train_stage2
+from cellsegmentation_tpu_torch.train.trainers import train_stage1, train_stage2
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "cellsegmentation_tpu")
@@ -120,6 +124,18 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         sample_topk(src, rng.random((2, len(coords)), np.float32), 32, 16,
                     tiles_per_pos=1, topk_neg=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_image_train_step(model)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_image_infer_step(model)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_stage1(model, src, None, epochs=1, batch_size=2)
+    # the CLIs: the card unless CST_PLATFORM=cpu, checked before any input
+    monkeypatch.delenv("CST_PLATFORM", raising=False)
+    for main, argv in ((train_image.main, []),
+                       (test_count.main, ["-m", str(tmp_path / "none.ckpt")])):
+        with pytest.raises(RuntimeError, match="CST_PLATFORM=cpu"):
+            main(argv + ["--data_path", str(tmp_path / "no_data")])
     # asked for the CPU, they run there
     assert resolve_device("cpu") == torch.device("cpu")
     step = make_tile_infer_step(model, 32, coords, engine="flax", device="cpu")
@@ -134,6 +150,11 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
                        infer_engine="flax", device="cpu",
                        logger=_quiet_logger(tmp_path))
     assert res.state.step == 1 and next(model.fc_tile.parameters()).device.type == "cpu"
+    cats, counts = make_image_infer_step(model, device="cpu")(src.images, [0, 3])
+    assert cats.device.type == counts.device.type == "cpu" and counts.shape == (2,)
+    res = train_stage1(model, src, None, epochs=1, batch_size=2, device="cpu",
+                       logger=_quiet_logger(tmp_path))
+    assert res.state.step == 1 and np.isfinite(res.epoch_stats[0]["loss"])
 
 
 def test_step_refuses_a_model_on_another_device():

@@ -99,7 +99,7 @@ def _jax_model(policy):
 def _port_model(policy, variables):
     model = MILNet(ResNetEncoder(Bottleneck, SIZES, policy=policy), policy=policy)
     skipped = load_jax_variables(model, variables)
-    assert skipped == ["fc_image_cls", "fc_image_reg", "seg_decoder"]
+    assert skipped == ["seg_decoder"]
     return model.eval()
 
 

@@ -338,15 +338,17 @@ def test_train_stage2_resume_is_exact(fx, port_q8dg, tmp_path):
     checkpoint, and a resumed second epoch, bit for bit: the model state
     from the checkpoint, the Adam state from its optimizer entry, the
     selection and the batches from the epoch's seeds. The checkpoint holds
-    the "tile" stage's partitions only."""
+    the "tile" stage's partitions only (pt2: the encoder, the image heads
+    and fc_tile)."""
     straight, r2, _ = port_q8dg
     out = str(tmp_path / "ckpt")
     _port_stage2(fx, str(tmp_path / "b"), infer_engine="q8dg", epochs=1,
                  output_dir=out)
     ck = tckpt.load_checkpoint(os.path.join(out, "pt2_1epochs.ckpt"))
     assert ck["mode"] == "tile" and ck["epoch"] == 1 and ck["encoder"] == "resnet50"
-    assert {k.split(".")[0] for k in ck["state_dict"]} == {"encoder", "fc_tile"}
-    assert set(tckpt.STAGE_SAVE_PARTITIONS["tile"]) >= {"encoder", "fc_tile"}
+    assert {k.split(".")[0] for k in ck["state_dict"]} == \
+        set(tckpt.STAGE_SAVE_PARTITIONS["tile"]) == \
+        {"encoder", "fc_image_cls", "fc_image_reg", "fc_tile"}
 
     train, val = _sources(fx)
     resumed = _port_model(F32_POLICY, fx["variables"])
