@@ -5,6 +5,7 @@ from cellsegmentation_tpu_torch.data.batches import (
     normalize_images,
 )
 from cellsegmentation_tpu_torch.data.lysto import LystoDataSource, LystoTestSource
+from cellsegmentation_tpu_torch.data.masks import MaskDataSource
 from cellsegmentation_tpu_torch.data.synthetic import (
     make_synthetic_arrays,
     make_synthetic_h5,
@@ -13,6 +14,7 @@ from cellsegmentation_tpu_torch.data.synthetic import (
 __all__ = [
     "LystoDataSource",
     "LystoTestSource",
+    "MaskDataSource",
     "BatchIterator",
     "normalize_images",
     "IMAGENET_MEAN",

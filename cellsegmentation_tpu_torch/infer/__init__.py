@@ -1,9 +1,9 @@
-"""Batched inference (stage-1 counts, the stage-2 tile sweep) and the
-adaptive top-k sampling step.
+"""Batched inference (stage-1 counts, the stage-2 tile sweep, the stage-3
+drawing sweep) and the adaptive top-k sampling step.
 
 Host loops around the steps of train/steps.py. Device->host traffic is two
-scalars per image for stage 1 and one [N, T] prob matrix for stage 2; the
-tile images never leave the device. Each loop is
+scalars per image for stage 1 and one [N, T] prob matrix for stages 2 and
+3; the tile images never leave the device. Each loop is
 a 2-deep software pipeline: CUDA work is asynchronous, so batch i+1's upload
 and compute are queued before batch i's probs are fetched, and the blocking
 fetch overlaps the device's next batch. Single-process: the multi-host
@@ -115,6 +115,35 @@ def inference_tiles(
     for (sel, valid), d_probs in pipeline2(batches, dispatch):
         out[sel[valid]] = d_probs.cpu().numpy()[valid]
     return out
+
+
+def iter_tiles_and_counts(source, tile_step, image_step, image_batch: int = 64,
+                          device=None):
+    """The stage-3 drawing sweep, per batch: yields (rows, probs, counts)
+    one batch behind the device, ``rows`` the batch's valid sample indices,
+    ``probs`` [B, T] f32 tile P(positive), ``counts`` [B] int64 (rounded,
+    diverged values clamped).
+
+    Each uint8 image batch crosses to ``device`` (the CUDA card unless
+    ``device="cpu"``) once and serves both the tile step
+    (``make_tile_infer_step``, given the host flip array for its flip-free
+    check) and the count head (``make_image_infer_step``)."""
+    dev = resolve_device(device)
+    n = len(source)
+    flip = getattr(source, "flip_code", np.zeros(n, dtype=np.int32))
+    base_idx = getattr(source, "base_idx", np.arange(n))
+
+    def dispatch(sv):
+        sel, _ = sv
+        images = torch.as_tensor(source.images[base_idx[sel]]).to(dev)
+        probs = tile_step(images, flip[sel])
+        _, regs = image_step(images, torch.as_tensor(flip[sel]).to(dev))
+        return probs, regs
+
+    batches = BatchIterator(n, image_batch, shuffle=False)
+    for (sel, valid), (d_probs, d_regs) in pipeline2(batches, dispatch):
+        yield (sel[valid], d_probs.cpu().numpy()[valid],
+               _clean_counts(d_regs.cpu().numpy()[valid]))
 
 
 def sample_topk(

@@ -1,5 +1,5 @@
-"""Shared model building blocks: the conv+BN(+ReLU) unit, the tile head and
-the image-count heads.
+"""Shared model building blocks: the conv+BN(+ReLU) unit, the tile head,
+the image-count heads and the U-Net-style seg decoder.
 
 Activations are NHWC at module boundaries (the JAX package's layout); a
 module permutes to NCHW views internally, which for an NHWC-contiguous
@@ -22,6 +22,7 @@ from torch import nn
 
 from cellsegmentation_tpu_torch.core.dtypes import DEFAULT_POLICY, Policy
 from cellsegmentation_tpu_torch.ops.pooling import global_avg_max_pool
+from cellsegmentation_tpu_torch.ops.resize import resize_bilinear_align_corners
 
 
 # flax's BatchNorm momentum: the share of the running statistics an update keeps
@@ -155,15 +156,83 @@ class ImageHeadMLP(nn.Sequential):
         return F.relu(x) if self.relu_out else x
 
 
+class UpConv(ConvBNAct):
+    """A decoder ConvBNAct. The reference's ``upconv<k>`` is
+    ``Sequential(Conv2d(bias=True), BN2d, ReLU)``; this conv has no bias
+    (as in the JAX package: in train-mode BatchNorm its gradient is
+    rounding noise), so a state dict that carries ``0.bias`` has it folded
+    into the running mean as it loads: BN(conv + b) == BN'(conv) with
+    mean' = mean - b, in both BatchNorm modes."""
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        bias = state_dict.pop(prefix + "0.bias", None)
+        mean = prefix + "1.running_mean"
+        if bias is not None and mean in state_dict:
+            state_dict[mean] = state_dict[mean] - bias
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
+
+
+class SegDecoder(nn.Module):
+    """Expanding path on the encoder's NHWC features (x4, x3, x2, x1): four
+    align-corners bilinear upsamples (the first three to the skips' sizes,
+    the fourth to twice x1's) interleaved with eight ``upconv`` units and
+    three skip concats, a final upsample to the input size, then the
+    2-channel 1x1 ``seg_out_conv`` with bias -> f32 logits [N, H, W, 2].
+
+    Widths are the reference's ``base * expansion``, base (256, 256, 128,
+    128, 64, 64, up7, 64) with ``up7 = 64 if expansion == 1 else 32 *
+    expansion``; ``skip_channels`` are x1..x4's. Sizes come from the skips,
+    so a 299^2 input upsamples 10 -> 19 -> 38 -> 75 -> 150 -> 299. Module
+    names are the reference's ``upconv1..8`` and ``seg_out_conv``. Convs,
+    resizes and concats run in the compute dtype, BatchNorm in f32."""
+
+    def __init__(self, skip_channels, expansion: int = 1,
+                 policy: Policy = DEFAULT_POLICY):
+        super().__init__()
+        self.policy = policy
+        e = expansion
+        c1, c2, c3, c4 = skip_channels
+        up7 = 64 if e == 1 else 32 * e
+        ins = (c4, 256 * e + c3, 256 * e, 128 * e + c2, 128 * e, 64 * e + c1,
+               64 * e, up7)
+        outs = (256 * e, 256 * e, 128 * e, 128 * e, 64 * e, 64 * e, up7, 64)
+        for k, (ci, co) in enumerate(zip(ins, outs), 1):
+            self.add_module(f"upconv{k}", UpConv(ci, co, policy=policy))
+        self.seg_out_conv = nn.Conv2d(64, 2, 1)
+
+    def _up(self, k: int, x: torch.Tensor, train: bool) -> torch.Tensor:
+        """upconv<k> on an NHWC tensor (its NCHW view goes through)."""
+        conv = getattr(self, f"upconv{k}")
+        return conv(x.permute(0, 3, 1, 2), train).permute(0, 2, 3, 1)
+
+    def forward(self, feats, out_hw, train: bool = False) -> torch.Tensor:
+        x4, x3, x2, x1 = feats
+        dt = self.policy.compute_dtype
+        x = x4.to(dt)
+        for k, skip in ((1, x3), (3, x2), (5, x1)):
+            x = resize_bilinear_align_corners(x, skip.shape[1], skip.shape[2])
+            x = self._up(k, x, train)
+            x = self._up(k + 1, torch.cat([x, skip.to(dt)], dim=-1), train)
+        x = resize_bilinear_align_corners(x, 2 * x1.shape[1], 2 * x1.shape[2])
+        x = self._up(8, self._up(7, x, train), train)
+        x = resize_bilinear_align_corners(x, out_hw[0], out_hw[1])
+        conv = self.seg_out_conv
+        y = F.conv2d(x.permute(0, 3, 1, 2), conv.weight.to(dt))
+        y = y + conv.bias.to(dt).view(1, -1, 1, 1)
+        return y.permute(0, 2, 3, 1).float()
+
+
 @torch.no_grad()
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
-    """Seeded initialization: convs kaiming-normal (fan_out, ReLU gain),
-    BatchNorm identity (scale 1, bias 0, running stats 0/1), Linear weights
-    normal with std 1/sqrt(fan_in) and zero bias."""
+    """Seeded initialization: convs kaiming-normal (fan_out, ReLU gain) with
+    zero bias, BatchNorm identity (scale 1, bias 0, running stats 0/1),
+    Linear weights normal with std 1/sqrt(fan_in) and zero bias."""
     for m in module.modules():
         if isinstance(m, nn.Conv2d):
             nn.init.kaiming_normal_(m.weight, mode="fan_out",
                                     nonlinearity="relu", generator=generator)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)
         elif isinstance(m, (nn.BatchNorm2d, nn.BatchNorm1d)):
             m.reset_parameters()
         elif isinstance(m, nn.Linear):

@@ -106,6 +106,9 @@ class ResNetEncoder(nn.Module):
                                        groups, base_width))
                 inplanes = planes * block_cls.expansion
             self.add_module(f"layer{stage + 1}", nn.Sequential(*layer))
+        # channels of x1..x4, the seg decoder's skips
+        self.stage_channels = tuple(p * block_cls.expansion
+                                    for p in (64, 128, 256, 512))
         self.out_channels = inplanes
 
     def forward(self, x: torch.Tensor, train: bool = False):

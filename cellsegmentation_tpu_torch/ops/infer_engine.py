@@ -1,15 +1,18 @@
-"""Serving engine for the stage-2 tile sweep: the dense shared-stem q8dg
-chain (folded-BN conv trunk with int8 activation sandwiches, then the int8
-GEMM trunk of ops/q8_trunk.py).
+"""Serving engines for the tile sweeps: the dense shared-stem q8dg chain
+(folded-BN conv trunk with int8 activation sandwiches, then the int8 GEMM
+trunk of ops/q8_trunk.py) and the per-tile q8 engine (the same folded conv
+trunk over every tile, all four stages in conv-land).
 
 - BatchNorm is folded into the conv weights once per build (the encoder is
-  frozen during stage 2, so folding stays valid for the whole cycle);
-- conv-land (stem, maxpool, layer1 once per image; layer2 per tile) runs as
-  bf16 convs with bf16 outputs (``F.conv2d``, cuDNN on the card);
-- every activation crossing memory between and inside blocks is quantized
-  to int8 with per-tensor scales calibrated on a pilot batch and
-  dequantized by its consumer;
-- layers 3-4 run as one hand-written int8 GEMM per conv.
+  frozen during stage 2 and the stage-3 draw, so folding stays valid);
+- conv-land runs as bf16 convs with bf16 outputs (``F.conv2d``, cuDNN on
+  the card): q8dg's stem and layer1 once per image and layer2 per tile,
+  per-tile q8's whole trunk per tile;
+- activations crossing memory between and inside blocks are quantized to
+  int8 with per-tensor scales calibrated on a pilot batch and dequantized
+  by their consumer: q8dg at every point, per-tile q8 after every block
+  and around the 3x3s of the first ``INTRA_STAGES`` stages;
+- q8dg runs layers 3-4 as one hand-written int8 GEMM per conv.
 
 Numerics: the JAX package's op order, modulo bf16 rounding placement and
 +-1 LSB int8 flips where a bf16 value sits on a quantization boundary.
@@ -30,7 +33,11 @@ from cellsegmentation_tpu_torch.data.batches import (
     normalize_images,
 )
 from cellsegmentation_tpu_torch.models.milnet import MILNet
-from cellsegmentation_tpu_torch.models.resnet import Bottleneck, ResNetEncoder
+from cellsegmentation_tpu_torch.models.resnet import (
+    BasicBlock,
+    Bottleneck,
+    ResNetEncoder,
+)
 from cellsegmentation_tpu_torch.ops.dense_frontend import (
     dense_grid_meta,
     frontend_patches,
@@ -44,6 +51,15 @@ from cellsegmentation_tpu_torch.ops.q8_trunk import (
 
 # the conv/GEMM split: the encoder stage (block 0) where the int8 GEMMs start
 GEMM_FIRST_STAGE = 2
+# per-tile q8's sandwich depths (the JAX package's conv backend): block
+# outputs in the first SANDWICH_STAGES stages, h1/h2 around the 3x3 in the
+# first INTRA_STAGES
+SANDWICH_STAGES = 4
+INTRA_STAGES = 2
+# tiles per pass of the per-tile q8 trunk: bounds the bf16 activations and
+# their f32 quantize temporaries of a 128-image batch on the 16/5 grid
+# (430k tiles); each tile's result does not depend on the split
+Q8_TILE_CHUNK = 32768
 
 
 def _bf16_round(a: np.ndarray) -> np.ndarray:
@@ -78,21 +94,29 @@ def _fold(conv, bn):
 @dataclasses.dataclass
 class FoldedTrunk:
     """Folded host weights (HWIO), grouped per stage: [(block0 weights),
-    (block1), ...] with (w1, b1, w2, b2, w3, b3[, wp, bp]) per Bottleneck."""
+    (block1), ...] with (w1, b1, w2, b2, w3, b3[, wp, bp]) per Bottleneck
+    (``kind="bottleneck"``) or (w1, b1, w2, b2[, wp, bp]) per BasicBlock
+    (``kind="basic"``)."""
 
     stem_w: np.ndarray
     stem_b: np.ndarray
     stages: list
     strides: list  # per-stage stride of block 0
+    kind: str = "bottleneck"
 
 
 def fold_tile_trunk(model: MILNet) -> Optional[FoldedTrunk]:
-    """Fold an ungrouped Bottleneck ResNet encoder; None for any other
-    encoder (the caller falls back to the model's own graph)."""
+    """Fold an ungrouped ResNet encoder (Bottleneck or BasicBlock); None
+    for any other encoder (the caller falls back to the model's own
+    graph)."""
     enc = model.encoder
-    if not isinstance(enc, ResNetEncoder):
+    if not isinstance(enc, ResNetEncoder) or enc.groups != 1:
         return None
-    if enc.block_cls is not Bottleneck or enc.groups != 1:
+    if enc.block_cls is Bottleneck:
+        kind, n_convs = "bottleneck", 3
+    elif enc.block_cls is BasicBlock:
+        kind, n_convs = "basic", 2
+    else:
         return None
     stem_w, stem_b = _fold(enc.conv1, enc.bn1)
     stages, strides = [], []
@@ -100,7 +124,7 @@ def fold_tile_trunk(model: MILNet) -> Optional[FoldedTrunk]:
         stage = []
         for blk in getattr(enc, f"layer{s + 1}"):
             ws = []
-            for ci in (1, 2, 3):
+            for ci in range(1, n_convs + 1):
                 ws.extend(_fold(getattr(blk, f"conv{ci}"), getattr(blk, f"bn{ci}")))
             if blk.downsample is not None:
                 ws.extend(_fold(blk.downsample[0], blk.downsample[1]))
@@ -108,7 +132,7 @@ def fold_tile_trunk(model: MILNet) -> Optional[FoldedTrunk]:
         stages.append(stage)
         strides.append(1 if s == 0 else 2)
     return FoldedTrunk(stem_w=stem_w, stem_b=stem_b, stages=stages,
-                       strides=strides)
+                       strides=strides, kind=kind)
 
 
 # ---------------------------------------------------------------------------
@@ -157,6 +181,17 @@ def _conv_bottleneck(x, ws, stride: int, s_h1=None, s_h2=None):
     return F.relu(out + res)
 
 
+def _conv_basic(x, ws, stride: int, s_h1=None, s_h2=None):
+    """One folded BasicBlock (3x3 s, 3x3), bf16 convs, an optional
+    sandwich between the two 3x3s (``s_h2`` is unused: it has no h2)."""
+    w1, b1, w2, b2 = ws[:4]
+    h = F.relu(_cv(x, w1, stride, 1) + b1)
+    h = _sandwich(h, s_h1)
+    out = _cv(h, w2, 1, 1) + b2
+    res = _cv(x, ws[4], stride, 0) + ws[5] if len(ws) == 6 else x
+    return F.relu(out + res)
+
+
 @dataclasses.dataclass
 class TrunkScales:
     """Per-tensor activation scales at every sandwich point:
@@ -181,20 +216,24 @@ def _device_conv(w: np.ndarray, b: np.ndarray, device, scale=None):
 
 
 def trunk_forward(tree, strides, x: torch.Tensor, scales: TrunkScales,
-                  n_stages: int) -> torch.Tensor:
+                  n_stages: Optional[int] = None,
+                  kind: str = "bottleneck") -> torch.Tensor:
     """Normalized bf16 NHWC images -> the NHWC output of the first
-    ``n_stages`` stages (stem, maxpool, blocks with sandwiches). The last
-    block's output is left unquantized for the caller."""
+    ``n_stages`` stages of ``tree`` (all by default): stem, maxpool, blocks
+    with their sandwiches. A walk cut short of ``tree``'s stages leaves its
+    last block's output unquantized for the caller (q8dg's GEMM seam); the
+    full walk sandwiches every block output, the last one included."""
     stem_w, stem_b, stages = tree
+    n_stages = len(stages) if n_stages is None else n_stages
+    block = _conv_basic if kind == "basic" else _conv_bottleneck
     x = _conv_bias_relu(x.permute(0, 3, 1, 2), stem_w, stem_b, 2, 3)
     x = F.max_pool2d(x, 3, 2, 1)
     for si in range(n_stages):
         for bi, bw in enumerate(stages[si]):
-            x = _conv_bottleneck(
-                x, bw, strides[si] if bi == 0 else 1,
-                s_h1=scales.h1[si][bi], s_h2=scales.h2[si][bi],
-            )
-            if not (si == n_stages - 1 and bi == len(stages[si]) - 1):
+            x = block(x, bw, strides[si] if bi == 0 else 1,
+                      s_h1=scales.h1[si][bi], s_h2=scales.h2[si][bi])
+            if not (n_stages < len(stages) and si == n_stages - 1
+                    and bi == len(stages[si]) - 1):
                 x = _sandwich(x, scales.block_out[si][bi])
     return x.permute(0, 2, 3, 1)
 
@@ -254,11 +293,26 @@ def _np_conv3(a: np.ndarray, k: np.ndarray, stride: int) -> np.ndarray:
     return y.permute(0, 2, 3, 1).contiguous().numpy()
 
 
-def _instrumented_block_np(x, ws, stride):
-    """f32 forward of one folded Bottleneck on the host, returning
-    (y, h1, h2, res); res is the pre-add residual branch."""
+def _instrumented_block_np(x, ws, stride, kind="bottleneck"):
+    """f32 forward of one folded block on the host, returning
+    (y, h1, h2, res); res is the pre-add residual branch. A BasicBlock has
+    no h2: its h1 comes back in both slots."""
     n, h, w, cin = x.shape
     flat = x.reshape(-1, cin)
+    if kind == "basic":
+        w1, b1, w2, b2 = [np.asarray(a, np.float32) for a in ws[:4]]
+        h1 = np.maximum(_np_conv3(x, w1, stride) + b1, 0.0)
+        out = _np_conv3(h1, w2, 1) + b2
+        ho, wo = out.shape[1], out.shape[2]
+        if len(ws) == 6:
+            xs = x[:, ::stride, ::stride, :] if stride > 1 else x
+            res = (xs.reshape(-1, cin) @ np.asarray(ws[4], np.float32)[0, 0]
+                   + np.asarray(ws[5], np.float32))
+        else:
+            res = flat
+        y = np.maximum(out.reshape(-1, out.shape[-1]) + res, 0.0)
+        h1f = h1.reshape(-1, h1.shape[-1])
+        return y.reshape(n, ho, wo, -1), h1f, h1f, res
     has_proj = len(ws) == 8
     w1, b1, w2, b2, w3, b3 = [np.asarray(a, np.float32) for a in ws[:6]]
     h1 = np.maximum(flat @ w1[0, 0] + b1, 0.0)
@@ -279,8 +333,11 @@ def _instrumented_block_np(x, ws, stride):
 
 def calibrate_trunk(folded: FoldedTrunk, calib_tiles: np.ndarray) -> TrunkScales:
     """Absmax activation scales at every sandwich point of every block
-    (h1, h2, block_out, and the projection outputs) from a pilot batch: a
-    bf16 stem on the host CPU, then an f32 forward of the folded blocks."""
+    (h1, h2, block_out, and the Bottleneck projection outputs) from a pilot
+    batch: a bf16 stem on the host CPU, then an f32 forward of the folded
+    blocks. These are the JAX package's ``deep=True`` scales; the per-tile
+    engine keeps only its own depths of them (``conv_trunk_scales``), the
+    same values its ``deep=False`` calibration gives."""
     with torch.no_grad():
         w, b = _device_conv(folded.stem_w, folded.stem_b, "cpu")
         v = torch.from_numpy(np.asarray(calib_tiles, np.float32))
@@ -293,12 +350,13 @@ def calibrate_trunk(folded: FoldedTrunk, calib_tiles: np.ndarray) -> TrunkScales
             bo, b1, b2, pr = [], [], [], []
             for bi, ws in enumerate(stage):
                 y, h1, h2, res = _instrumented_block_np(
-                    x, ws, stride if bi == 0 else 1
+                    x, ws, stride if bi == 0 else 1, folded.kind
                 )
                 b1.append(_absmax_scale(h1))
                 b2.append(_absmax_scale(h2))
                 bo.append(_absmax_scale(y))
-                pr.append(_absmax_scale(res) if len(ws) == 8 else None)
+                has_proj = folded.kind == "bottleneck" and len(ws) == 8
+                pr.append(_absmax_scale(res) if has_proj else None)
                 x = y
             block_out.append(bo)
             h1s.append(b1)
@@ -406,8 +464,8 @@ def make_dense_tile_probs(
     calib_tiles: np.ndarray, scales: Optional[TrunkScales] = None,
     w2_impl: str = "auto",
 ) -> Optional[DenseTileProbs]:
-    """Build the dense shared-stem sweep (q8dg); None when the arch or the
-    grid does not qualify. ``scales`` replaces the calibration (a test feeds
+    """Build the dense shared-stem sweep (q8dg); None when the arch (an
+    ungrouped Bottleneck ResNet) or the grid does not qualify. ``scales`` replaces the calibration (a test feeds
     the JAX package's TrunkScales through it); ``w2_impl`` picks the GEMM
     trunk's 3x3 form (ops/q8_trunk.py ``W2_IMPLS``).
 
@@ -415,7 +473,7 @@ def make_dense_tile_probs(
     layers 3-4 (from stage ``GEMM_FIRST_STAGE``, block 0) as int8 GEMMs."""
     folded = fold_tile_trunk(model)
     meta = dense_grid_meta(hw, tile_size, interval)
-    if folded is None or meta is None:
+    if folded is None or folded.kind != "bottleneck" or meta is None:
         return None
     if scales is None:
         scales = calibrate_trunk(folded, np.asarray(calib_tiles, np.float32))
@@ -425,3 +483,78 @@ def make_dense_tile_probs(
         span = (span + 1) // 2
     return DenseTileProbs(model, folded, meta, scales, span, GEMM_FIRST_STAGE,
                           w2_impl)
+
+
+# ---------------------------------------------------------------------------
+# the per-tile q8 engine
+# ---------------------------------------------------------------------------
+
+
+def conv_trunk_scales(scales: TrunkScales) -> TrunkScales:
+    """The per-tile engine's sandwich points of ``scales``: block outputs in
+    the first SANDWICH_STAGES stages, h1/h2 in the first INTRA_STAGES, no
+    projection scales (the JAX package's ``calibrate_trunk(deep=False)``)."""
+    def keep(rows, depth):
+        return [[v if si < depth else None for v in row]
+                for si, row in enumerate(rows)]
+
+    return TrunkScales(block_out=keep(scales.block_out, SANDWICH_STAGES),
+                       h1=keep(scales.h1, INTRA_STAGES),
+                       h2=keep(scales.h2, INTRA_STAGES))
+
+
+def _head_logits(fc_tile, x4: torch.Tensor) -> torch.Tensor:
+    """avg+max pool of bf16 NHWC features in bf16 (the mean summed in f32
+    and rounded, as ``jnp.mean`` of a bf16 map; the two pools added in
+    bf16), then the tile Linear on bf16 operands with f32 accumulation."""
+    mean = x4.float().mean(dim=(1, 2)).to(torch.bfloat16)
+    pooled = mean + x4.amax(dim=(1, 2))
+    lin = fc_tile[1]
+    w = lin.weight.to(torch.bfloat16).float()
+    return F.linear(pooled.float(), w) + lin.bias.float()
+
+
+class TileTrunkLogits:
+    """The per-tile q8 engine: normalized bf16 NHWC tiles [N, ts, ts, 3] ->
+    f32 tile logits [N, 2] on the model's device. The whole folded trunk
+    runs as bf16 convs with the conv backend's int8 sandwiches (every block
+    output, the last one included, and h1/h2 in the first INTRA_STAGES
+    stages), then the head pools in bf16. ``fc_tile`` is read from the
+    model at every call."""
+
+    def __init__(self, model: MILNet, folded: FoldedTrunk, scales: TrunkScales):
+        dev = next(model.parameters()).device
+        self.model = model
+        self.kind = folded.kind
+        self.strides = tuple(folded.strides)
+        self.scales = scales
+        stem = _device_conv(folded.stem_w, folded.stem_b, dev)
+        stages = [[tuple(t for j in range(0, len(ws), 2)
+                         for t in _device_conv(ws[j], ws[j + 1], dev))
+                   for ws in stage] for stage in folded.stages]
+        self.tree = (*stem, stages)
+
+    @torch.no_grad()
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        x4 = trunk_forward(self.tree, self.strides, x, self.scales,
+                           kind=self.kind)
+        return _head_logits(self.model.fc_tile, x4)
+
+
+def make_fast_tile_logits(
+    model: MILNet, calib_tiles: Optional[np.ndarray] = None,
+    scales: Optional[TrunkScales] = None,
+) -> Optional[TileTrunkLogits]:
+    """Build the per-tile q8 engine (the JAX package's
+    ``make_fast_tile_logits(backend="conv")``); None for an encoder that
+    does not fold. The scales come from ``calib_tiles`` (normalized f32
+    pilot tiles) or are given as ``scales`` (any depth: the engine keeps
+    its own points of them)."""
+    folded = fold_tile_trunk(model)
+    if folded is None:
+        return None
+    if scales is None:
+        if calib_tiles is None:
+            raise ValueError("the per-tile q8 engine needs calib_tiles or scales")
+        scales = calibrate_trunk(folded, np.asarray(calib_tiles, np.float32))
+    return TileTrunkLogits(model, folded, conv_trunk_scales(scales))

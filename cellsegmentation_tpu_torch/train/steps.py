@@ -1,6 +1,6 @@
 """The stage steps: stage 1's image train and infer steps, stage 2's tile
 sweep (engine resolution, the exact per-tile graph) and selected-tile train
-step.
+step, stage 3's seg-decoder train and infer steps.
 
 ``make_image_train_step`` trains the whole model in train mode (every
 BatchNorm on batch statistics, running ones updated; dropout on) against
@@ -14,12 +14,15 @@ gathered from a device-resident uint8 stack. Engine names are the JAX
 package's, so flags carry over:
 
 - ``"flax"``: the model's own graph on extracted tiles (exact per-tile);
+- ``"q8"``: the per-tile q8 engine, the folded conv trunk with int8
+  sandwiches on extracted tiles (ops/infer_engine.py);
 - ``"q8dg"``: the dense shared-stem int8-GEMM sweep (ops/infer_engine.py);
 - ``"auto"``: q8dg whenever the grid lies on the /4 stem lattice and the
-  arch folds (an ungrouped Bottleneck ResNet), on any device; otherwise the
-  exact per-tile graph.
+  arch folds to it (an ungrouped Bottleneck ResNet), on any device; else
+  per-tile q8 (any ungrouped ResNet); else, without calibration images or
+  scales, or for an encoder that does not fold, the exact per-tile graph.
 
-The per-tile q8/q8g engines and the q8d conv trunk come with later slices.
+The q8g engine and the q8d conv trunk come with a later slice.
 
 ``make_tile_train_step`` trains the tile head on selected tiles with the
 encoder frozen (BatchNorm on running statistics, no autograd graph through
@@ -36,12 +39,12 @@ import torch.nn.functional as F
 from cellsegmentation_tpu_torch.core.device import model_device
 from cellsegmentation_tpu_torch.data.batches import flip_images, normalize_images
 from cellsegmentation_tpu_torch.models.milnet import MILNet
-from cellsegmentation_tpu_torch.ops.losses import count_weights
+from cellsegmentation_tpu_torch.ops.losses import count_weights, dice_coef
 from cellsegmentation_tpu_torch.ops.q8_trunk import W2_IMPLS
 from cellsegmentation_tpu_torch.ops.tiles import extract_tiles, tile_grid
 
-ENGINES = ("flax", "auto", "q8dg")
-_LATER = ("q8", "q8g", "q8d")
+ENGINES = ("flax", "auto", "q8", "q8dg")
+_LATER = ("q8g", "q8d")
 
 
 def _as_device(x, device, dtype=None) -> torch.Tensor:
@@ -56,19 +59,21 @@ def make_tile_infer_step(
     """Tile sweep over whole uint8 images [G, H, W, 3] on ``device`` (the
     CUDA card unless ``device="cpu"``; the model must already live there).
 
-    ``coords`` is the static [T, 2] grid. Dense engines need
+    ``coords`` is the static [T, 2] grid. The q8 engines need
     ``calib_images`` (uint8 full frames) for the int8 scale calibration, or
-    ``scales`` (a TrunkScales) to skip it; ``w2_impl`` picks the GEMM
-    trunk's 3x3 form (ops/q8_trunk.py ``W2_IMPLS``, a speed switch: the forms
-    are bit-identical). The step's ``resolved_engine`` names the engine that
-    runs."""
+    ``scales`` (a TrunkScales) to skip it: without either, ``"auto"`` and
+    ``"q8"`` run the exact graph, as in the JAX package, and ``"q8dg"``
+    raises; ``w2_impl`` picks the GEMM trunk's 3x3 form (ops/q8_trunk.py
+    ``W2_IMPLS``, a speed switch: the forms are bit-identical). The step's
+    ``resolved_engine`` names the engine that runs, and ``engine`` holds
+    the built q8 engine."""
     dev = model_device(model, device)
     if w2_impl not in W2_IMPLS:
         raise ValueError(f"w2_impl must be one of {W2_IMPLS}, got {w2_impl!r}")
     if engine in _LATER:
         raise NotImplementedError(
-            f"engine={engine!r} is not ported yet; the per-tile q8/q8g engines "
-            "and the q8d conv trunk come with a later slice of the port"
+            f"engine={engine!r} is not ported yet; the q8g engine and the "
+            "q8d conv trunk come with a later slice of the port"
         )
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}; expected one of {ENGINES}")
@@ -89,6 +94,18 @@ def make_tile_infer_step(
         infer_dense.engine = built
         return infer_dense
 
+    fast = _build_tile_engine(model, tile_size, coords, engine, calib_images,
+                              scales)
+    if fast is not None:
+        @torch.no_grad()
+        def infer_q8(images, flip):
+            return _q8_tile_body(fast, tile_size, _as_device(images, dev),
+                                 _as_device(flip, dev), coords)
+
+        infer_q8.resolved_engine = "q8"
+        infer_q8.engine = fast
+        return infer_q8
+
     @torch.no_grad()
     def infer(images, flip):
         return _tile_infer_body(model, tile_size, _as_device(images, dev),
@@ -100,7 +117,14 @@ def make_tile_infer_step(
 
 def _resolve_dense_engine(engine: str):
     """The dense engine an ``engine`` request maps to, if any: explicit
-    ``"q8dg"`` is honored and ``"auto"`` promotes to it on every device."""
+    ``"q8dg"`` is honored and ``"auto"`` promotes to it on every device.
+
+    The JAX package promotes ``"auto"`` only off its CPU backend, where its
+    GEMM kernels run as Pallas in interpret mode, a Python loop per grid
+    cell. The port's CPU versions of the kernels are plain PyTorch at full
+    speed, so it promotes on the CPU too, a deliberate difference: the CPU
+    then runs the engine the card runs. Where q8dg does not qualify, both
+    fall back alike, to per-tile q8."""
     return "q8dg" if engine in ("q8dg", "auto") else None
 
 
@@ -158,17 +182,51 @@ def _build_dense_engine(model, tile_size, coords, calib_images, scales,
                                  scales=scales, w2_impl=w2_impl)
 
 
-def _tile_infer_body(model, tile_size, images, flip, coords):
-    """The exact per-tile graph: tiles extracted on the device, flipped per
-    the parent sample's code, one [G*T] forward in the compute dtype."""
-    g = images.shape[0]
+def _build_tile_engine(model, tile_size, coords, engine, calib_images, scales):
+    """The per-tile q8 engine for an ``"q8"`` or ``"auto"`` request, or None:
+    without calibration images or scales, or for an encoder that does not
+    fold (the exact graph serves those, as in the JAX package)."""
+    from cellsegmentation_tpu_torch.ops.infer_engine import (
+        calib_tiles_from_images,
+        make_fast_tile_logits,
+    )
+
+    if engine not in ("q8", "auto") or (calib_images is None and scales is None):
+        return None
+    calib = (None if calib_images is None else
+             calib_tiles_from_images(np.asarray(calib_images), coords, tile_size))
+    return make_fast_tile_logits(model, calib, scales)
+
+
+def _flat_tiles(images, flip, coords, tile_size):
+    """uint8 tiles [G*T, ts, ts, 3] extracted on the device, and each
+    tile's flip code, its parent sample's [G*T]."""
     tiles = extract_tiles(images, coords, tile_size)  # [G, T, ts, ts, 3] u8
-    t = tiles.shape[1]
-    flat = tiles.reshape(g * t, tile_size, tile_size, 3)
-    x = normalize_images(flat, flip.repeat_interleave(t),
-                         dtype=model.policy.compute_dtype)
-    logits = model(x, mode="tile")
-    return torch.softmax(logits.float(), dim=-1)[:, 1].reshape(g, t)
+    flat = tiles.reshape(-1, tile_size, tile_size, 3)
+    return flat, flip.repeat_interleave(tiles.shape[1])
+
+
+def _q8_tile_body(fast, tile_size, images, flip, coords):
+    """Per-tile q8: the tiles flipped and normalized into bf16, then the
+    engine's logits in passes of at most ``Q8_TILE_CHUNK`` tiles."""
+    from cellsegmentation_tpu_torch.ops.infer_engine import Q8_TILE_CHUNK
+
+    flat, flip_t = _flat_tiles(images, flip, coords, tile_size)
+    logits = torch.cat([
+        fast(normalize_images(flat[i:i + Q8_TILE_CHUNK],
+                              flip_t[i:i + Q8_TILE_CHUNK], dtype=torch.bfloat16))
+        for i in range(0, len(flat), Q8_TILE_CHUNK)
+    ])
+    return torch.softmax(logits.float(), dim=-1)[:, 1].reshape(images.shape[0], -1)
+
+
+def _tile_infer_body(model, tile_size, images, flip, coords):
+    """The exact per-tile graph: the tiles flipped, one [G*T] forward in the
+    compute dtype."""
+    flat, flip_t = _flat_tiles(images, flip, coords, tile_size)
+    logits = model(normalize_images(flat, flip_t, dtype=model.policy.compute_dtype),
+                   mode="tile")
+    return torch.softmax(logits.float(), dim=-1)[:, 1].reshape(images.shape[0], -1)
 
 
 def make_stack_tile_infer_step(
@@ -336,5 +394,65 @@ def make_image_infer_step(model: MILNet, device=None):
         x = normalize_images(_as_device(images, dev), _as_device(flip, dev))
         out_cls, out_reg = model(x, mode="image")
         return torch.softmax(out_cls.float(), dim=-1), out_reg[:, 0].float()
+
+    return infer
+
+
+# ---------------------------------------------------------------------------
+# Stage 3: the segmentation decoder
+# ---------------------------------------------------------------------------
+
+_SEG_KEYS = ("images", "flip", "mask", "valid")
+
+
+def make_seg_train_step(model: MILNet, device=None):
+    """Stage-3 step over batches ``{images: u8 [B,H,W,3], flip, mask: 0/1
+    [B,H,W] (already flipped with its image), valid}``, host or device.
+
+    ``step(state, batch) -> (state, {"loss_ce", "loss_dice", "loss"})``:
+    the loss is soft dice on softmax channel 1, one coefficient per image,
+    masked-mean over ``valid``; the pixel cross-entropy is computed for the
+    log only. Encoder and decoder run in train mode, so every BatchNorm
+    normalizes by the batch and moves its running statistics (the padded
+    rows take part, as in the JAX package). The state's optimizer holds the
+    ``"segment"`` partition, the decoder (train/state.py): the encoder's
+    parameters need no gradient, so autograd keeps out of it.
+    ``step.loss_fn(batch) -> (dice, ce)`` is the forward alone."""
+    dev = model_device(model, device)
+
+    def loss_fn(batch):
+        b = {k: _as_device(batch[k], dev) for k in _SEG_KEYS}
+        x = normalize_images(b["images"], b["flip"])
+        logits = model(x, mode="segment", train=True).float()
+        probs_pos = torch.softmax(logits, dim=-1)[..., 1]
+        dice = _masked_mean(1 - dice_coef(probs_pos, b["mask"]), b["valid"])
+        with torch.no_grad():
+            logp = F.log_softmax(logits, dim=-1)
+            ce_map = -logp.gather(-1, b["mask"].long()[..., None])[..., 0]
+            ce = _masked_mean(ce_map.mean(dim=(1, 2)), b["valid"])
+        return dice, ce
+
+    def step(state, batch):
+        dice, ce = loss_fn(batch)
+        state.optimizer.zero_grad(set_to_none=True)
+        dice.backward()
+        state.apply_gradients()
+        dice = dice.detach()
+        return state, {"loss_ce": ce, "loss_dice": dice, "loss": dice}
+
+    step.loss_fn = loss_fn
+    return step
+
+
+def make_seg_infer_step(model: MILNet, device=None):
+    """``(images u8 [B,H,W,3], flip [B]) -> P(positive) [B, H, W]``, f32 on
+    the device: the segment mode on running statistics, softmax channel 1."""
+    dev = model_device(model, device)
+
+    @torch.no_grad()
+    def infer(images, flip):
+        x = normalize_images(_as_device(images, dev), _as_device(flip, dev))
+        logits = model(x, mode="segment")
+        return torch.softmax(logits.float(), dim=-1)[..., 1]
 
     return infer

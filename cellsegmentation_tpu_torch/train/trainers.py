@@ -1,11 +1,11 @@
-"""Host-side epoch orchestration of stage 1 (image counting) and the
-stage-2 MIL cycle.
+"""Host-side epoch orchestration of stage 1 (image counting), the stage-2
+MIL cycle and stage 3 (pseudo-mask drawing, seg-decoder training).
 
 The steps (train/steps.py) do the math on the device; the host loop owns
 the data-dependent control flow: the batches, stage 1's hard-example
-resampling, stage 2's per-epoch sweep and selection, validation and
-checkpointing. Single-process: the multi-host split comes with the
-``parallel/`` slice of the port.
+resampling, stage 2's per-epoch sweep and selection, stage 3's per-epoch
+flips, validation and checkpointing. Single-process: the multi-host split
+comes with the ``parallel/`` slice of the port.
 """
 
 from __future__ import annotations
@@ -31,7 +31,9 @@ from cellsegmentation_tpu_torch.train.state import TrainState, create_train_stat
 from cellsegmentation_tpu_torch.train.steps import (
     make_image_infer_step,
     make_image_train_step,
+    make_seg_train_step,
     make_stack_tile_infer_step,
+    make_tile_infer_step,
     make_tile_train_step,
 )
 from cellsegmentation_tpu_torch.utils.logging import RunLogger
@@ -58,6 +60,16 @@ class Stage2Result:
     # per epoch: host seconds of each phase ("sweep", "select", "train",
     # "val"; each ends in a device->host read), the tiles trained on
     # ("train_tiles") and the mean tile loss ("loss")
+    epoch_stats: list = dataclasses.field(default_factory=list)
+
+
+@dataclasses.dataclass
+class Stage3Result:
+    state: TrainState
+    last_loss: Optional[float] = None
+    # per epoch: host seconds of the train steps ("train", ending in a
+    # device->host read), the steps taken ("steps") and the metric means
+    # ("loss_ce", "loss_dice", "loss")
     epoch_stats: list = dataclasses.field(default_factory=list)
 
 
@@ -284,7 +296,7 @@ def train_stage2(
     h, w = train_source.image_hw
     coords = tile_grid(h, w, tile_size, interval)
     calib = (pick_calib_images(train_source.images)
-             if infer_engine in ("q8dg", "auto") else None)
+             if infer_engine in ("q8", "q8dg", "auto") else None)
     stack_infer_fn = make_stack_tile_infer_step(
         model, tile_size, coords, engine=infer_engine, calib_images=calib,
         device=dev, w2_impl=w2_impl,
@@ -407,3 +419,175 @@ def train_stage2(
 
     return Stage2Result(state=state, last_metrics=last_metrics,
                         selections=selections, epoch_stats=epoch_stats)
+
+
+def draw_pseudo_masks(
+    model: MILNet,
+    source,
+    *,
+    tile_size: int = 16,
+    interval: int = 5,
+    threshold: float = 0.95,
+    image_batch: int = 64,
+    preprocess: bool = False,
+    output_path: Optional[str] = None,
+    logger: Optional[RunLogger] = None,
+    engine: str = "auto",
+    infer_tiles_fn=None,
+    device=None,
+) -> np.ndarray:
+    """Stage-3 pseudo-masks: uint8 [N, H, W] for every sample of ``source``.
+
+    The tile sweep on the ``tile_size``/``interval`` grid keeps the tiles
+    with P(positive) > ``threshold``; artifact clearing drops every tile of
+    an image whose predicted count is 0 (the image head); the kept tiles
+    are painted as blocks, refined with ``preprocess`` (the V-channel
+    refinement and small-region morphology) and, with ``output_path``,
+    saved as ``rgb/``/``mask/`` PNG pairs.
+
+    ``infer_tiles_fn``: a built ``make_tile_infer_step`` on the same grid,
+    to reuse one engine build across draws; else one is built with
+    ``engine`` and calibration images picked from the source. On the CLI's
+    16/5 grid ``"auto"`` resolves to per-tile q8 (the grid is off q8dg's /4
+    lattice); the log names the engine that ran. The model must live on
+    ``device`` (the CUDA card unless ``device="cpu"``). Streamed: each image
+    batch crosses to the device once for both heads
+    (``infer.iter_tiles_and_counts``), and the host paints, refines and
+    saves batch i while the device sweeps batch i+1. Single-process: the
+    multi-host branch comes with the ``parallel/`` slice of the port."""
+    from cellsegmentation_tpu_torch.postprocess.masks import (
+        paint_tile_blocks,
+        preprocess_masks_batch,
+        save_mask_pairs,
+    )
+
+    dev = model_device(model, device)
+    logger = logger or RunLogger(output_path or "./output")
+    h, w = source.image_hw
+    coords = tile_grid(h, w, tile_size, interval)
+    if infer_tiles_fn is None:
+        infer_tiles_fn = make_tile_infer_step(
+            model, tile_size, coords, engine=engine,
+            calib_images=pick_calib_images(source.images), device=dev,
+        )
+    engine_ran = getattr(infer_tiles_fn, "resolved_engine", "unknown")
+    infer_image_fn = make_image_infer_step(model, device=dev)
+    n = len(source)
+    base_idx = getattr(source, "base_idx", np.arange(n))
+    masks = np.zeros((n, h, w), dtype=np.uint8)
+    kept_tiles = kept_images = 0
+    for rows, probs, counts in infer.iter_tiles_and_counts(
+        source, infer_tiles_fn, infer_image_fn, image_batch=image_batch,
+        device=dev,
+    ):
+        keep = (probs > threshold) & (counts != 0)[:, None]
+        groups, tile_idx = np.nonzero(keep)
+        kept_tiles += len(groups)
+        kept_images += len(np.unique(groups))
+        imgs = source.images[base_idx[rows]]
+        m = paint_tile_blocks(len(imgs), (h, w), groups, coords[tile_idx],
+                              tile_size)
+        if preprocess:
+            m = preprocess_masks_batch(imgs, m)
+        masks[rows] = m.astype(np.uint8)
+        if output_path:
+            save_mask_pairs(output_path, rows, imgs, m)
+    logger.info(f"pseudo-masks: {kept_tiles} tiles kept on {kept_images}/{n} "
+                f"images (tile engine {engine_ran})")
+    return masks
+
+
+def flip_masks(masks: np.ndarray, flips: np.ndarray) -> np.ndarray:
+    """[B, H, W] masks flipped by their images' codes (``flip_images``):
+    1 reverses W, 2 reverses H, 3 both."""
+    mh = (flips == 1) | (flips == 3)
+    mv = (flips == 2) | (flips == 3)
+    masks = np.where(mh[:, None, None], masks[:, :, ::-1], masks)
+    return np.where(mv[:, None, None], masks[:, ::-1, :], masks)
+
+
+def train_stage3(
+    model: MILNet,
+    mask_source,
+    *,
+    epochs: int = 30,
+    batch_size: int = 32,
+    lr: float = 5e-5,
+    weight_decay: float = 1e-4,
+    scheduler: Optional[str] = None,
+    encoder_name: str = "resnet50",
+    output_dir: Optional[str] = None,
+    logger: Optional[RunLogger] = None,
+    seed: int = 42,
+    last_epoch: int = 0,
+    resume_opt_state: Optional[dict] = None,
+    device=None,
+) -> Stage3Result:
+    """Stage-3 seg-decoder training on a ``MaskDataSource``: dice on the
+    positive softmax channel, cross-entropy logged beside it, the decoder's
+    parameters trained and every BatchNorm's statistics moving (the
+    encoder's too).
+
+    Per epoch: the shuffled batches, each image with a random flip drawn
+    from a generator seeded by ``seed + epoch`` when the source augments
+    (its mask flipped with it); the ``seg-training`` CSV; with
+    ``output_dir``, a ``"segment"`` (pt3) checkpoint at the last epoch and
+    on interrupt. Adam without a scheduler, SGD with one (``t0`` 5 for the
+    warm restarts). Resuming (``last_epoch``) moves the step and the
+    shuffle stream past the done epochs, so the run continues as a straight
+    one would. The model carries the weights and is trained in place; it
+    must live on ``device`` (the CUDA card unless ``device="cpu"``)."""
+    dev = model_device(model, device)
+    logger = logger or RunLogger(output_dir or "./output")
+    it = BatchIterator(len(mask_source), batch_size, shuffle=True, seed=seed)
+    schedule = make_schedule(scheduler, lr, epochs, len(it), t0=5)
+    state = create_train_state(model, "segment", schedule,
+                               use_sgd=scheduler is not None,
+                               weight_decay=weight_decay, device=dev)
+    if last_epoch:
+        state.step = last_epoch * len(it)
+        it.fast_forward(last_epoch)
+    _restore_optimizer(state, resume_opt_state)
+    step_fn = make_seg_train_step(model, device=dev)
+
+    def save(epoch):
+        save_checkpoint(output_dir, "segment", epoch, encoder_name,
+                        model.state_dict(), state.optimizer.state_dict(),
+                        step=state.step)
+
+    last_loss = None
+    epoch_stats = []
+    for epoch in range(1 + last_epoch, epochs + 1):
+        try:
+            t0 = time.perf_counter()
+            pipe = _MetricsPipe()
+            aug_rng = np.random.default_rng(seed + epoch)
+            for sel, valid in it:
+                flips = (aug_rng.integers(0, 4, size=len(sel)).astype(np.int32)
+                         if mask_source.augment
+                         else np.zeros(len(sel), dtype=np.int32))
+                batch = {"images": mask_source.images[sel], "flip": flips,
+                         "mask": flip_masks(mask_source.masks[sel], flips),
+                         "valid": valid}
+                state, metrics = step_fn(state, batch)
+                pipe.push(metrics)
+            means = pipe.means()  # waits for the last step
+            epoch_stats.append({"train": time.perf_counter() - t0,
+                                "steps": pipe.n, **means})
+            last_loss = means.get("loss")
+            logger.info(
+                f"[stage3 epoch {epoch}/{epochs}] "
+                + " | ".join(f"{k}: {v:.4f}" for k, v in means.items())
+            )
+            logger.csv_row("seg-training", ["epoch", "seg_loss_ce", "seg_loss_dice"],
+                           [epoch, means.get("loss_ce", 0), means.get("loss_dice", 0)])
+            logger.scalars({f"seg/{k}": v for k, v in means.items()}, epoch)
+            if output_dir and epoch >= epochs:
+                save(epoch)
+        except KeyboardInterrupt:
+            if output_dir:
+                save(epoch)
+            logger.info(f"interrupted at epoch {epoch}; checkpoint saved")
+            raise
+
+    return Stage3Result(state=state, last_loss=last_loss, epoch_stats=epoch_stats)

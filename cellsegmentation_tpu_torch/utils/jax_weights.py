@@ -9,10 +9,12 @@ The inverse of the JAX package's torchvision converter:
 - encoder blocks ``layer<s>_<b>/ConvBNAct_<i>`` become ``layer<s>.<b>.conv<i+1>``
   / ``bn<i+1>``, the projection ``downsample.0/1``;
 - an image head's ``BatchNorm_0`` / ``Dense_0`` / ``BatchNorm_1`` /
-  ``Dense_1`` become its ``.1`` / ``.4`` / ``.5`` / ``.7``.
+  ``Dense_1`` become its ``.1`` / ``.4`` / ``.5`` / ``.7``;
+- the seg decoder's ``ConvBNAct_<k>`` becomes ``seg_decoder.upconv<k+1>.0``
+  / ``.1`` and its final ``Conv_0`` ``seg_decoder.seg_out_conv``.
 
-Subtrees the port does not have yet (``seg_decoder``) are skipped and
-returned by name, never dropped silently.
+Subtrees the port does not have are skipped and returned by name, never
+dropped silently.
 """
 
 from __future__ import annotations
@@ -84,7 +86,17 @@ def jax_to_state_dict(variables: dict) -> tuple[dict, list[str]]:
                 _dense(sd, f"{head}.{idx}", params[head][name])
             else:
                 _bn(sd, f"{head}.{idx}", params[head][name], stats[head][name])
-    skipped = sorted(k for k in params if k not in ("encoder", "fc_tile", *heads))
+    if "seg_decoder" in params:
+        dp, ds = params["seg_decoder"], stats["seg_decoder"]
+        for k in range(8):
+            cba, cbs = dp[f"ConvBNAct_{k}"], ds[f"ConvBNAct_{k}"]
+            sd[f"seg_decoder.upconv{k + 1}.0.weight"] = _conv(cba["Conv_0"]["kernel"])
+            _bn(sd, f"seg_decoder.upconv{k + 1}.1", cba["BatchNorm_0"],
+                cbs["BatchNorm_0"])
+        sd["seg_decoder.seg_out_conv.weight"] = _conv(dp["Conv_0"]["kernel"])
+        sd["seg_decoder.seg_out_conv.bias"] = _t(dp["Conv_0"]["bias"])
+    known = ("encoder", "fc_tile", *heads, "seg_decoder")
+    skipped = sorted(k for k in params if k not in known)
     return sd, skipped
 
 

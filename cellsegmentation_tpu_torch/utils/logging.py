@@ -8,8 +8,19 @@ from __future__ import annotations
 
 import csv
 import os
+import re
 import time
 from typing import Optional, Sequence
+
+
+def sort_files(files: Sequence[str]) -> list[str]:
+    """Natural sort by the first integer in each file's name (-1 without
+    one)."""
+    def key(name: str):
+        m = re.search(r"\d+", os.path.basename(name))
+        return int(m.group()) if m else -1
+
+    return sorted(files, key=key)
 
 
 class RunLogger:

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch/CUDA port (cellsegmentation_tpu_torch).
 
-Drives the port's stage-1 and stage-2 paths on one CUDA card, at the full
-width of ResNet-50 MILNet on 299^2 images (stage 2: 32-px tiles, interval
-20, 225 tiles per image), with seeded random weights and seeded synthetic
+Drives the port's stage-1, stage-2 and stage-3 paths on one CUDA card, at
+the full width of ResNet-50 MILNet on 299^2 images (stage 2: 32-px tiles,
+interval 20, 225 tiles per image; stage 3's draw: 16-px tiles, interval 5,
+3,364 tiles per image), with seeded random weights and seeded synthetic
 LYSTO images:
 
 1. device: the card's name and power limit, the TF32 flags;
@@ -41,10 +42,23 @@ LYSTO images:
    scaled by keep, flips dropped) that this gate must reject; the pt1
    checkpoint loaded into a fresh model (equal state, bit-equal counts)
    and a q8dg sweep batch on its encoder; a profile of one train step;
-8. profile: device time by kernel over one sweep step: 29 launches of the
+8. stage3: ``draw_pseudo_masks`` as the ``train_seg`` CLI calls it (engine
+   "auto", which must resolve to per-tile q8 on the 16/5 grid; image batch
+   128; threshold 0.95) on 128 images, counted: no hand-written kernel is
+   launched; its images/s, tiles kept and peak memory. The per-tile q8
+   log-odds against the exact graph on the card and against the CPU.
+   ``train_stage3`` for 2 epochs at the CLI's defaults (batch 32, Adam, lr
+   5e-5) on the drawn masks, augmented, which launches no hand-written
+   kernel; the seg step's images/s, MFU and peak memory at batch 32; one
+   f32 seg step on the card against the CPU, and three planted faults
+   (align_corners=False, masks left unflipped, encoder statistics frozen)
+   that this gate must reject; the pt3 file into a fresh model, whose seg
+   probabilities are bit-equal to the trained model's; profiles of one
+   draw batch and one seg step;
+9. profile: device time by kernel over one sweep step: 29 launches of the
    wgmma kernel under its own name and no other hand-written kernel;
-9. one JSON line with every kernel's launches and times;
-10. last line: {"ok": true, "device": {...}}.
+10. one JSON line with every kernel's launches and times;
+11. last line: {"ok": true, "device": {...}}.
 
 Run from the repository root: ``python3 chip_smoke.py`` (one card). Exits
 non-zero, printing no result, when a phase fails or no card is present.
@@ -152,6 +166,36 @@ S1_STAT_RTOL = 1e-3
 S1_WEIGHT_RTOL = 0.1
 S1_CHECK_IMAGES = 8
 S1_CHECK_LR = 5e-4
+# [stage3]: the train_seg CLI's draw (16/5 grid, image batch 128, threshold
+# 0.95) on STAGE3_IMAGES synthetic images, then train_stage3 at its defaults
+STAGE3_IMAGES, STAGE3_TILE, STAGE3_INTERVAL = 128, 16, 5
+STAGE3_DRAW_BATCH, STAGE3_THRESHOLD = 128, 0.95
+STAGE3_BATCH, STAGE3_LR, STAGE3_EPOCHS = 32, 5e-5, 2
+# With HEAD_SCALE no tile's log-odds reach the threshold's 2.944; the tile
+# head's bias is set so that this share of the first two images' tiles
+# pass it (the share over all images is printed beside it).
+STAGE3_PASS_SHARE = 0.02
+# Per-tile q8 log-odds (head x HEAD_SCALE), card vs CPU on 2 images: the
+# same Python on both, cuDNN and oneDNN round bf16 convs in other places and
+# the int8 sandwiches turn some of those into 1-LSB flips, as for q8dg
+# (whose card-vs-CPU reading was max 0.018, mean 0.0012): the q8dg limits.
+Q8_CARD_CPU_MAX, Q8_CARD_CPU_MEAN = 0.05, 0.005
+# per-tile q8 against the exact per-tile graph on the card: mean at most
+# Q8_EXACT_MEAN, and at most the same distance on the CPU + Q8_CARD_CPU_MEAN
+# (on the CPU, before the first chip run: mean 0.00095 on one image of
+# another seed, 0.0059 on this phase's two)
+Q8_EXACT_MEAN = 0.02
+# The stage-3 card-vs-CPU gate: one seg step of the full-width f32 model
+# (TF32 off) on S3_CHECK_IMAGES images (flip codes 0-3, masks flipped with
+# them), the same seeded weights on both devices. Readings: the loss's
+# relative gap, the cosine of the decoder's gradients, and the largest gap
+# of an encoder or a decoder running statistic over its tensor's largest
+# value. Set before the first chip run, from the stage-1 gate's f32
+# readings (loss 2.07e-5, cosine 0.999813, statistics 4.19e-5).
+S3_LOSS_RTOL = 2e-4
+S3_GRAD_MIN_COS = 0.9995
+S3_STAT_RTOL = 1e-3
+S3_CHECK_IMAGES = 4
 
 
 # kernel kinds of a profile, by words of the kernel's name, first match
@@ -159,7 +203,11 @@ PROFILE_KINDS = (
     ("hand-written int8 GEMMs", ("q8_wgmma",)),
     ("BatchNorm (cuDNN)", ("batchnorm", "batch_norm", "bn_fw", "bn_bw")),
     ("convs (cuDNN, CUTLASS)", ("fprop", "dgrad", "wgrad", "xmma", "cutlass",
-                                "cudnn::cnn", "implicit_gemm", "convolution")),
+                                "cudnn::cnn", "implicit_gemm", "convolution",
+                                "convolve")),
+    # the seg decoder's align-corners resizes: index_select forward,
+    # index_add backward
+    ("gathers and scatters", ("indexFunc", "indexSelect", "scatter_gather")),
     ("host-device copies", ("Memcpy", "Memset")),
 )
 
@@ -1179,6 +1227,376 @@ def phase_stage1(args, card, src, slice_gap):
                   lambda: step(state, batch), top=12)
 
 
+class _KeepLog:
+    """A RunLogger that keeps its info lines."""
+
+    def __init__(self, out, run_name):
+        from cellsegmentation_tpu_torch.utils.logging import RunLogger
+
+        self.log = RunLogger(out, run_name=run_name, tensorboard=False)
+        self.lines = []
+
+    def info(self, msg):
+        self.lines.append(msg)
+        self.log.info(msg)
+
+    def __getattr__(self, name):
+        return getattr(self.log, name)
+
+
+def _seg_batch(src, rows, flips):
+    """A seg batch of ``src`` rows, each mask flipped with its image."""
+    import numpy as np
+
+    from cellsegmentation_tpu_torch.train.trainers import flip_masks
+
+    return {"images": src.images[rows], "flip": flips,
+            "mask": flip_masks(src.masks[rows], flips),
+            "valid": np.ones(len(rows), bool)}
+
+
+def _seg_step_flops(model, batch):
+    """Model FLOPs of one seg train step: the encoder's forward (no
+    gradient: its parameters are frozen) plus 3 x the decoder's forward
+    (forward, input and weight gradients), the convs' FLOPs counted by
+    torch.utils.flop_counter (2 per multiply-add)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from cellsegmentation_tpu_torch.data.batches import normalize_images
+
+    dev = next(model.parameters()).device
+    x = normalize_images(torch.as_tensor(batch["images"]).to(dev),
+                         torch.as_tensor(batch["flip"]).to(dev))
+    probe = copy.deepcopy(model)  # the forwards move BatchNorm statistics
+    with torch.no_grad(), FlopCounterMode(display=False) as fc:
+        probe.encoder(x, train=True)
+    enc = fc.get_total_flops()
+    with torch.no_grad(), FlopCounterMode(display=False) as fc:
+        probe(x, mode="segment", train=True)
+    return enc + 3 * (fc.get_total_flops() - enc)
+
+
+def seg_step_reading(model, batch, dev):
+    """One seg step's forward and backward on ``model`` (train mode, the
+    decoder trainable): (loss, the decoder's gradients as one f64 CPU
+    vector, every running statistic as f64 CPU tensors)."""
+    import torch
+
+    from cellsegmentation_tpu_torch.train.steps import make_seg_train_step
+
+    model.set_trainable(("seg_decoder",))
+    model.zero_grad(set_to_none=True)
+    dice, _ = make_seg_train_step(model, device=dev).loss_fn(batch)
+    dice.backward()
+    grads = torch.cat([p.grad.detach().double().cpu().flatten()
+                       for p in model.seg_decoder.parameters()])
+    stats = {k: v.detach().double().cpu() for k, v in model.state_dict().items()
+             if "running_" in k}
+    return float(dice.detach()), grads, stats
+
+
+def seg_step_gap(got, want):
+    """(loss rel, gradient cosine, encoder statistic gap, decoder statistic
+    gap, within the S3_* limits) of a seg_step_reading against the
+    reference one."""
+    (lg, gg, sg), (lc, gc, sc) = got, want
+    rel = abs(lg - lc) / abs(lc)
+    cos = float(gg @ gc / (gg.norm() * gc.norm()))
+
+    def stat(prefix):
+        return max(float((sg[k] - sc[k]).abs().max() / sc[k].abs().max())
+                   for k in sc if k.startswith(prefix))
+
+    enc, dec = stat("encoder."), stat("seg_decoder.")
+    ok = (rel <= S3_LOSS_RTOL and cos >= S3_GRAD_MIN_COS and enc <= S3_STAT_RTOL
+          and dec <= S3_STAT_RTOL)
+    return rel, cos, enc, dec, ok
+
+
+@contextlib.contextmanager
+def planted_stage3_fault(fault, model):
+    """A fault planted in the port's stage-3 path for the gate to reject:
+    ``"align_corners=False"`` (the decoder's upsamples sample half-pixel
+    centers) or ``"encoder statistics frozen"`` (the encoder's BatchNorm on
+    running statistics in the seg step)."""
+    import functools
+
+    import torch.nn.functional as F
+
+    from cellsegmentation_tpu_torch.models import common
+
+    if fault == "align_corners=False":
+        orig = common.resize_bilinear_align_corners
+
+        def half_pixel(x, h, w):
+            y = F.interpolate(x.permute(0, 3, 1, 2).float(), size=(h, w),
+                              mode="bilinear", align_corners=False)
+            return y.to(x.dtype).permute(0, 2, 3, 1)
+
+        common.resize_bilinear_align_corners = half_pixel
+        try:
+            yield
+        finally:
+            common.resize_bilinear_align_corners = orig
+    else:
+        model.forward = functools.partial(type(model).forward, model,
+                                          freeze_encoder_stats=True)
+        try:
+            yield
+        finally:
+            del model.forward
+
+
+def phase_stage3(args, card):
+    """Stage 3 on the card: the draw as the train_seg CLI runs it (counted),
+    the per-tile q8 gates, train_stage3 (counted), the seg step's rate, the
+    card-vs-CPU seg-step gate with its planted faults, the pt3 handoff and
+    the profiles."""
+    import numpy as np
+    import torch
+
+    from cellsegmentation_tpu_torch.core.dtypes import F32_POLICY
+    from cellsegmentation_tpu_torch.data import (
+        LystoDataSource,
+        MaskDataSource,
+        make_synthetic_arrays,
+    )
+    from cellsegmentation_tpu_torch.kernels import q8_gemm as tq
+    from cellsegmentation_tpu_torch.models import build_model
+    from cellsegmentation_tpu_torch.ops.infer_engine import pick_calib_images
+    from cellsegmentation_tpu_torch.ops.tiles import tile_grid
+    from cellsegmentation_tpu_torch.train import checkpoint as ckpt_mod
+    from cellsegmentation_tpu_torch.train.schedules import make_schedule
+    from cellsegmentation_tpu_torch.train.state import create_train_state
+    from cellsegmentation_tpu_torch.train.steps import (
+        make_seg_infer_step,
+        make_seg_train_step,
+        make_tile_infer_step,
+    )
+    from cellsegmentation_tpu_torch.train.trainers import draw_pseudo_masks, train_stage3
+    from cellsegmentation_tpu_torch.utils.logging import RunLogger
+
+    t_phase = time.perf_counter()
+    hw, ts, iv = args.hw, STAGE3_TILE, STAGE3_INTERVAL
+    a = make_synthetic_arrays(STAGE3_IMAGES, hw, 30, seed=args.seed + 3)
+    src = LystoDataSource.from_arrays(a["images"], a["organs"], a["counts"], kfold=None)
+    coords = tile_grid(hw, hw, ts, iv)
+    n_t = len(coords)
+    check(n_t == 3364, f"{n_t} tiles an image on the {ts}/{iv} grid")
+    model = quiet_head(build_model("resnet50", device="cuda", seed=args.seed))
+    with torch.no_grad():  # a count head pinned at 5, or clearing drops every tile
+        model.fc_image_reg[7].weight.zero_()
+        model.fc_image_reg[7].bias.fill_(5.0)
+
+    # 1) the draw's engine, built as draw_pseudo_masks builds it
+    t0 = time.perf_counter()
+    step = make_tile_infer_step(model, ts, coords, engine="auto",
+                                calib_images=pick_calib_images(src.images), device="cuda")
+    build_s = time.perf_counter() - t0
+    check(step.resolved_engine == "q8", f"auto resolved to {step.resolved_engine}, want q8")
+    imgs2 = src.images[:2]
+    lo0 = _logodds(step(imgs2, np.zeros(2, np.int32)).cpu().numpy())
+    bias = math.log(STAGE3_THRESHOLD / (1 - STAGE3_THRESHOLD)) - float(
+        np.quantile(lo0, 1 - STAGE3_PASS_SHARE))
+    with torch.no_grad():
+        model.fc_tile[1].bias.copy_(torch.tensor([0.0, bias]))
+    print(f"[stage3] per-tile q8 engine build (fold, calibrate) {build_s:.1f} s; "
+          f"tile head bias {bias:.4f} so that {STAGE3_PASS_SHARE} of 2 images' tiles "
+          f"pass {STAGE3_THRESHOLD}")
+
+    # 2) per-tile q8 log-odds: card vs the exact graph, card vs the CPU
+    flip = np.asarray([0, 3], np.int32)
+    lq = _logodds(step(imgs2, flip).cpu().numpy())
+    le = _logodds(make_tile_infer_step(model, ts, coords, engine="flax",
+                                       device="cuda")(imgs2, flip).cpu().numpy())
+    cpu_model = copy.deepcopy(model).cpu()
+    lc = _logodds(make_tile_infer_step(cpu_model, ts, coords, engine="q8",
+                                       scales=step.engine.scales,
+                                       device="cpu")(imgs2, flip).numpy())
+    lce = _logodds(make_tile_infer_step(cpu_model, ts, coords, engine="flax",
+                                        device="cpu")(imgs2, flip).numpy())
+    del cpu_model
+    d, e_g, e_c = np.abs(lq - lc), np.abs(lq - le), np.abs(lc - lce)
+    rank = [float(np.corrcoef(_ranks(lq[i]), _ranks(lc[i]))[0, 1]) for i in range(2)]
+    print(f"[stage3] per-tile q8 log-odds on 2 images x {n_t} tiles (flips 0, 3): card "
+          f"vs CPU max {d.max():.5f} mean {d.mean():.6f} (limits {Q8_CARD_CPU_MAX} / "
+          f"{Q8_CARD_CPU_MEAN}), rank corr {[round(r, 4) for r in rank]}; q8 vs the "
+          f"exact graph: card max {e_g.max():.5f} mean {e_g.mean():.6f}, CPU max "
+          f"{e_c.max():.5f} mean {e_c.mean():.6f} (limit: card mean <= {Q8_EXACT_MEAN} "
+          f"and <= CPU mean + {Q8_CARD_CPU_MEAN})")
+    check(d.max() <= Q8_CARD_CPU_MAX and d.mean() <= Q8_CARD_CPU_MEAN,
+          f"card and CPU per-tile q8 differ by max {d.max():.5f} mean {d.mean():.6f}")
+    check(min(rank) >= MIN_RANK_CORR, f"card and CPU rank the tiles differently {rank}")
+    check(e_g.mean() <= Q8_EXACT_MEAN and e_g.mean() <= e_c.mean() + Q8_CARD_CPU_MEAN,
+          f"per-tile q8 sits {e_g.mean():.5f} from the exact graph on the card "
+          f"(CPU: {e_c.mean():.5f})")
+
+    with tempfile.TemporaryDirectory() as out:
+        # 3) the draw, counted: draw_pseudo_masks as train_seg calls it (the
+        # default engine build included); then the steady draw timed apart
+        step(src.images[:STAGE3_DRAW_BATCH], np.zeros(STAGE3_DRAW_BATCH, np.int32))
+        log = _KeepLog(out, "draw")
+        tq.reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        masks = draw_pseudo_masks(model, src, tile_size=ts, interval=iv,
+                                  threshold=STAGE3_THRESHOLD,
+                                  image_batch=STAGE3_DRAW_BATCH, logger=log,
+                                  device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = {fn.__name__: fn.launches for fn in tq.KERNELS}
+        check(not any(launches.values()), f"the draw launched {launches}")
+        (line,) = [ln for ln in log.lines if ln.startswith("pseudo-masks:")]
+        check(line.endswith("(tile engine q8)"), f"the draw ran {line}")
+        kept = int(line.split()[1])
+        check(0 < kept < len(src) * n_t, f"{kept} tiles kept")
+        check(masks.shape == (len(src), hw, hw) and masks.any(), "no mask drawn")
+        secs = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            again = draw_pseudo_masks(model, src, tile_size=ts, interval=iv,
+                                      threshold=STAGE3_THRESHOLD,
+                                      image_batch=STAGE3_DRAW_BATCH, logger=log,
+                                      device="cuda", infer_tiles_fn=step)
+            secs.append(time.perf_counter() - t0)
+        check(np.array_equal(again, masks), "the steady draw drew other masks")
+        print(f"[stage3] draw_pseudo_masks ({len(src)} images x {n_t} tiles, image batch "
+              f"{STAGE3_DRAW_BATCH}, threshold {STAGE3_THRESHOLD}, engine auto -> q8): "
+              f"{wall:.2f} s with the engine build ({len(src) / wall:.1f} images/s); "
+              f"{kept} tiles kept ({100 * kept / (len(src) * n_t):.2f}%), "
+              f"{int((masks.reshape(len(src), -1).max(1) > 0).sum())}/{len(src)} images "
+              f"with a mask, {100 * masks.mean():.2f}% of pixels; hand-written kernel "
+              f"launches {launches}; peak memory {peak / 2**30:.2f} GiB; steady draw "
+              f"(engine built) {[round(x, 4) for x in secs]} s, median "
+              f"{len(src) / float(np.median(secs)):.1f} images/s "
+              f"({len(src) * n_t / float(np.median(secs)):.0f} tiles/s) on {card}")
+
+        # 4) train_stage3 on the drawn masks, counted
+        msrc = MaskDataSource.from_arrays(src.images, masks, augment=True)
+        n_steps = math.ceil(len(msrc) / STAGE3_BATCH)
+        tq.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = train_stage3(model, msrc, epochs=STAGE3_EPOCHS, batch_size=STAGE3_BATCH,
+                           lr=STAGE3_LR, weight_decay=1e-4, seed=args.seed,
+                           output_dir=out, device="cuda",
+                           logger=RunLogger(out, run_name="stage3", tensorboard=False))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in tq.KERNELS}
+        check(not any(launches.values()), f"train_stage3 launched {launches}")
+        print(f"[stage3] train_stage3: {STAGE3_EPOCHS} epochs of {n_steps} steps (batch "
+              f"{STAGE3_BATCH}, Adam lr {STAGE3_LR}, {len(msrc)} augmented samples) in "
+              f"{wall:.1f} s on {card}; hand-written kernel launches {launches}")
+        for e, st in enumerate(res.epoch_stats, 1):
+            check(all(math.isfinite(st[k]) for k in ("loss_ce", "loss_dice", "loss")),
+                  f"epoch {e} losses {st}")
+            check(st["steps"] == n_steps, f"epoch {e}: {st['steps']} steps")
+            print(f"[stage3] epoch {e}: loss_dice {st['loss_dice']:.6f} loss_ce "
+                  f"{st['loss_ce']:.6f}; train {st['train']:.4f} s "
+                  f"({len(msrc) / st['train']:.1f} images/s)")
+        ck = ckpt_mod.load_checkpoint(f"{out}/pt3_{STAGE3_EPOCHS}epochs.ckpt")
+        check(ck["mode"] == "segment" and ck["step"] == STAGE3_EPOCHS * n_steps,
+              f"checkpoint {ck['mode']} step {ck['step']}")
+
+    # 5) the seg step's rate at batch 32, on a copy of the trained model
+    rate_model = copy.deepcopy(model)
+    state = create_train_state(rate_model, "segment",
+                               make_schedule(None, STAGE3_LR, 1, 1), device="cuda")
+    seg_step = make_seg_train_step(rate_model, device="cuda")
+    flips = (np.arange(STAGE3_BATCH) % 4).astype(np.int32)
+    batch = _seg_batch(msrc, np.arange(STAGE3_BATCH), flips)
+    flops = _seg_step_flops(rate_model, batch)
+    for _ in range(2):
+        state, _ = seg_step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    secs = []
+    for _ in range(TRAIN_RATE_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = seg_step(state, batch)
+        check(math.isfinite(float(metrics["loss"])), "non-finite seg loss")
+        secs.append(time.perf_counter() - t0)
+    med = float(np.median(secs))
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[stage3] seg train step at batch {STAGE3_BATCH}, {len(secs)} steps after 2 "
+          f"warm-up in {[round(x, 4) for x in secs]} s: median {med:.4f} s, "
+          f"{STAGE3_BATCH / med:.1f} images/s; peak memory {peak / 2**30:.2f} GiB; "
+          f"{flops / 1e12:.3f} TFLOP a step (the encoder's forward + 3 x the decoder's): "
+          f"MFU {100 * flops / med / BF16_PEAK_FLOPS:.2f}% of "
+          f"{BF16_PEAK_FLOPS / 1e12:.0f} TFLOP/s bf16, on {card}")
+    profile_step = lambda b=batch: seg_step(state, b)  # noqa: E731
+
+    # 6) one f32 seg step, card against CPU, and the planted faults
+    pick = np.arange(S3_CHECK_IMAGES)
+    fl = (pick % 4).astype(np.int32)
+    batch = _seg_batch(msrc, pick, fl)
+    t0 = time.perf_counter()
+    cpu = seg_step_reading(build_model("resnet50", policy=F32_POLICY, device="cpu",
+                                       seed=args.seed), batch, "cpu")
+    cpu_s = time.perf_counter() - t0
+
+    def card_reading(b=batch, fault=None):
+        m = build_model("resnet50", policy=F32_POLICY, device="cuda", seed=args.seed)
+        if fault is None:
+            return seg_step_reading(m, b, "cuda")
+        with planted_stage3_fault(fault, m):
+            return seg_step_reading(m, b, "cuda")
+
+    planted = {"align_corners=False": (batch, "align_corners=False"),
+               "masks left unflipped": (dict(batch, mask=msrc.masks[pick]), None),
+               "encoder statistics frozen": (batch, "encoder statistics frozen")}
+    gaps = {None: seg_step_gap(card_reading(), cpu)}
+    gaps.update({name: seg_step_gap(card_reading(b, fault), cpu)
+                 for name, (b, fault) in planted.items()})
+    rel, cos, enc, dec, ok = gaps[None]
+    limits = (f"limits rel {S3_LOSS_RTOL}, cos {S3_GRAD_MIN_COS}, statistics "
+              f"{S3_STAT_RTOL}")
+    print(f"[stage3] one f32 seg step of {len(pick)} images (flips {fl.tolist()}), card "
+          f"vs CPU ({cpu_s:.1f} s on the CPU): loss {cpu[0]:.6f}, rel {rel:.2e}; decoder "
+          f"gradient cosine {cos:.9f}; running statistics gap: encoder {enc:.2e}, "
+          f"decoder {dec:.2e} ({limits})")
+    for name in planted:
+        rel, cos, enc, dec, bad_ok = gaps[name]
+        print(f"[stage3] planted fault ({name}) vs CPU: loss rel {rel:.2e}, cosine "
+              f"{cos:.9f}, statistics {enc:.2e} / {dec:.2e}: "
+              f"{'passes' if bad_ok else 'rejected'}")
+    check(ok, "seg step card vs CPU outside the limits")
+    for name in planted:
+        check(not gaps[name][-1], f"the stage-3 gate passes a planted fault: {name}")
+
+    # 7) the pt3 handoff: the file into a fresh model, bit-equal seg probs
+    fresh = build_model("resnet50", device="cuda", seed=args.seed)
+    ckpt_mod.restore_into(fresh, ck)
+    sd_t, sd_f = model.state_dict(), fresh.state_dict()
+    check(sd_t.keys() == sd_f.keys() and all(torch.equal(sd_t[k], sd_f[k]) for k in sd_t),
+          "the loaded pt3 model's state differs from the trained one")
+    n = min(8, len(msrc))
+    imgs, fl = msrc.images[:n], (np.arange(n) % 4).astype(np.int32)
+    p_mem = make_seg_infer_step(model, device="cuda")(imgs, fl)
+    p_file = make_seg_infer_step(fresh, device="cuda")(imgs, fl)
+    check(torch.equal(p_mem, p_file), "seg probs differ between the trained and the "
+          "loaded model")
+    check(p_mem.shape == (n, hw, hw) and bool(torch.isfinite(p_mem).all()),
+          f"seg probs {tuple(p_mem.shape)}")
+    print(f"[stage3] pt3 into a fresh model: state equal; make_seg_infer_step on {n} "
+          f"images bit-equal, P(positive) {float(p_mem.min()):.4f}..{float(p_mem.max()):.4f}")
+
+    # 8) profiles: one draw batch of 32 images, one seg step
+    rows, _ = _profile_rows("stage3", f"one per-tile q8 draw batch of 32 images x {n_t} tiles",
+                            lambda: step(src.images[:32], np.zeros(32, np.int32)), top=10)
+    check(not any("q8_wgmma" in key for _, _, key in rows),
+          "the draw's profile shows a hand-written kernel")
+    _profile_rows("stage3", f"one seg train step of {STAGE3_BATCH} images", profile_step,
+                  top=12)
+    print(f"[stage3] phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def _ranks(v):
     import numpy as np
 
@@ -1333,6 +1751,9 @@ def main(argv=None) -> int:
 
         phase = "stage1"
         phase_stage1(args, card, src, slice_gap)
+
+        phase = "stage3"
+        phase_stage3(args, card)
 
         phase = "profile"
         phase_profile(step, src.images[: args.image_batch])

@@ -99,7 +99,7 @@ def _jax_model(policy):
 def _port_model(policy, variables):
     model = MILNet(ResNetEncoder(Bottleneck, SIZES, policy=policy), policy=policy)
     skipped = load_jax_variables(model, variables)
-    assert skipped == ["seg_decoder"]
+    assert skipped == []
     return model.eval()
 
 

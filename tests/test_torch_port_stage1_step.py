@@ -114,7 +114,9 @@ def test_image_train_step_matches_jax(fx, heads, reg_loss, use_sgd):
     got = _state_dict(model)
     for k in (k for k in want if "running_" in k):
         assert _rel(got[k], want[k]) <= STAT_TOL, (k, _rel(got[k], want[k]))
-        assert not np.array_equal(got[k], before[k]), k
+        # the seg decoder does not run in the image mode
+        moved = not np.array_equal(got[k], before[k])
+        assert moved != k.startswith("seg_decoder."), k
     frozen = {"cls": "fc_image_reg", "reg": "fc_image_cls"}.get(heads)
     for part in ("encoder", *HEADS, "fc_tile"):
         keys = [k for k in want if k.startswith(part) and "running_" not in k]
