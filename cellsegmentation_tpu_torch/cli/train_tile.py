@@ -44,13 +44,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("-n", "--topk_neg", type=int, default=30)
     parser.add_argument("-R", "--pos_neg_ratio", type=float, default=0.5)
     parser.add_argument("-c", "--threshold", type=float, default=0.95)
-    # all six of the JAX package's engines; q8g and q8d raise until ported
-    parser.add_argument("--infer_engine",
-                        choices=("auto", "q8", "q8g", "q8d", "q8dg", "flax"),
-                        default="auto",
-                        help=f"dense-sweep engine (ported: {', '.join(ENGINES)}; "
-                             "auto: the fastest validated chain the grid and "
-                             "arch support)")
+    parser.add_argument("--infer_engine", choices=ENGINES, default="auto",
+                        help="dense-sweep engine (auto: the fastest validated "
+                             "chain the grid and arch support)")
     return parser
 
 

@@ -5,7 +5,11 @@ from cellsegmentation_tpu_torch.data.batches import (
     normalize_images,
 )
 from cellsegmentation_tpu_torch.data.lysto import LystoDataSource, LystoTestSource
-from cellsegmentation_tpu_torch.data.masks import MaskDataSource
+from cellsegmentation_tpu_torch.data.masks import (
+    MaskDataSource,
+    MaskTestSource,
+    PointTestSource,
+)
 from cellsegmentation_tpu_torch.data.synthetic import (
     make_synthetic_arrays,
     make_synthetic_h5,
@@ -15,6 +19,8 @@ __all__ = [
     "LystoDataSource",
     "LystoTestSource",
     "MaskDataSource",
+    "MaskTestSource",
+    "PointTestSource",
     "BatchIterator",
     "normalize_images",
     "IMAGENET_MEAN",

@@ -1,9 +1,10 @@
 """Batched inference (stage-1 counts, the stage-2 tile sweep, the stage-3
-drawing sweep) and the adaptive top-k sampling step.
+drawing sweep and seg masks) and the adaptive top-k sampling step.
 
 Host loops around the steps of train/steps.py. Device->host traffic is two
-scalars per image for stage 1 and one [N, T] prob matrix for stages 2 and
-3; the tile images never leave the device. Each loop is
+scalars per image for stage 1, one [N, T] prob matrix for stages 2 and
+3's drawing, and one [H, W] prob map per image for the seg masks; the tile
+images never leave the device. Each loop is
 a 2-deep software pipeline: CUDA work is asynchronous, so batch i+1's upload
 and compute are queued before batch i's probs are fetched, and the blocking
 fetch overlaps the device's next batch. Single-process: the multi-host
@@ -114,6 +115,27 @@ def inference_tiles(
     batches = BatchIterator(n, image_batch, shuffle=False)
     for (sel, valid), d_probs in pipeline2(batches, dispatch):
         out[sel[valid]] = d_probs.cpu().numpy()[valid]
+    return out
+
+
+def inference_seg(source, infer_step, batch_size: int = 16) -> np.ndarray:
+    """Soft positive-class masks [N, H, W] float32 of every sample.
+
+    ``infer_step`` is ``train.steps.make_seg_infer_step(model)``:
+    ``(images u8, flip) -> P(positive) [B, H, W]`` on the device."""
+    n = len(source)
+    h, w = source.image_hw
+    flip = getattr(source, "flip_code", np.zeros(n, dtype=np.int32))
+    base_idx = getattr(source, "base_idx", np.arange(n))
+    out = np.zeros((n, h, w), dtype=np.float32)
+
+    def dispatch(sv):
+        sel, _ = sv
+        return infer_step(source.images[base_idx[sel]], flip[sel])
+
+    batches = BatchIterator(n, batch_size, shuffle=False)
+    for (sel, valid), d_masks in pipeline2(batches, dispatch):
+        out[sel[valid]] = d_masks.cpu().numpy()[valid]
     return out
 
 

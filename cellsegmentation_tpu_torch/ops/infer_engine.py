@@ -1,7 +1,12 @@
-"""Serving engines for the tile sweeps: the dense shared-stem q8dg chain
-(folded-BN conv trunk with int8 activation sandwiches, then the int8 GEMM
-trunk of ops/q8_trunk.py) and the per-tile q8 engine (the same folded conv
-trunk over every tile, all four stages in conv-land).
+"""Serving engines for the tile sweeps, the JAX package's four:
+
+- q8dg, the dense shared-stem chain: stem and layer1 once per image, then
+  per tile layer2 as the folded-BN conv trunk with int8 activation
+  sandwiches and layers 3-4 as the int8 GEMM trunk of ops/q8_trunk.py;
+- q8d, the same dense front with layers 2-4 all in conv-land;
+- q8, per tile: the whole folded conv trunk over every tile;
+- q8g, per tile: stem and layer1 in conv-land, layers 2-4 as int8 GEMMs
+  from the tile's /4 map.
 
 - BatchNorm is folded into the conv weights once per build (the encoder is
   frozen during stage 2 and the stage-3 draw, so folding stays valid);
@@ -10,9 +15,11 @@ trunk over every tile, all four stages in conv-land).
   per-tile q8's whole trunk per tile;
 - activations crossing memory between and inside blocks are quantized to
   int8 with per-tensor scales calibrated on a pilot batch and dequantized
-  by their consumer: q8dg at every point, per-tile q8 after every block
-  and around the 3x3s of the first ``INTRA_STAGES`` stages;
-- q8dg runs layers 3-4 as one hand-written int8 GEMM per conv.
+  by their consumer: in GEMM-land at every point, in conv-land after every
+  block and around the 3x3s of the first ``INTRA_STAGES`` stages;
+- q8dg and q8g run their GEMM-land as one hand-written int8 GEMM per conv.
+  Only a Bottleneck trunk has a GEMM-land: for a BasicBlock encoder both
+  take their conv-land form (q8d and q8), as in the JAX package.
 
 Numerics: the JAX package's op order, modulo bf16 rounding placement and
 +-1 LSB int8 flips where a bf16 value sits on a quantization boundary.
@@ -56,9 +63,10 @@ GEMM_FIRST_STAGE = 2
 # first INTRA_STAGES
 SANDWICH_STAGES = 4
 INTRA_STAGES = 2
-# tiles per pass of the per-tile q8 trunk: bounds the bf16 activations and
-# their f32 quantize temporaries of a 128-image batch on the 16/5 grid
-# (430k tiles); each tile's result does not depend on the split
+# tiles per pass of the per-tile engines and the exact graph: bounds the
+# bf16 activations and their f32 quantize temporaries of a 128-image batch
+# on the 16/5 grid (430k tiles) or the 32/5 grid (387k); each tile's result
+# does not depend on the split
 Q8_TILE_CHUNK = 32768
 
 
@@ -220,22 +228,30 @@ def trunk_forward(tree, strides, x: torch.Tensor, scales: TrunkScales,
                   kind: str = "bottleneck") -> torch.Tensor:
     """Normalized bf16 NHWC images -> the NHWC output of the first
     ``n_stages`` stages of ``tree`` (all by default): stem, maxpool, blocks
-    with their sandwiches. A walk cut short of ``tree``'s stages leaves its
-    last block's output unquantized for the caller (q8dg's GEMM seam); the
-    full walk sandwiches every block output, the last one included."""
+    with their sandwiches. A walk given ``n_stages`` ends at a seam and
+    leaves its last block's output unquantized for the caller; the full
+    walk sandwiches every block output, the last one included."""
     stem_w, stem_b, stages = tree
+    seam = n_stages is not None
     n_stages = len(stages) if n_stages is None else n_stages
-    block = _conv_basic if kind == "basic" else _conv_bottleneck
     x = _conv_bias_relu(x.permute(0, 3, 1, 2), stem_w, stem_b, 2, 3)
     x = F.max_pool2d(x, 3, 2, 1)
-    for si in range(n_stages):
-        for bi, bw in enumerate(stages[si]):
-            x = block(x, bw, strides[si] if bi == 0 else 1,
-                      s_h1=scales.h1[si][bi], s_h2=scales.h2[si][bi])
-            if not (n_stages < len(stages) and si == n_stages - 1
-                    and bi == len(stages[si]) - 1):
-                x = _sandwich(x, scales.block_out[si][bi])
+    plan = [(si, bi) for si in range(n_stages) for bi in range(len(stages[si]))]
+    x = _blocks_forward(x, stages, strides, plan, scales, kind, seam)
     return x.permute(0, 2, 3, 1)
+
+
+def _blocks_forward(x, stages, strides, plan, scales: TrunkScales, kind: str,
+                    seam: bool):
+    """Run the blocks (stage, block) of ``plan`` on an NCHW map with their
+    sandwiches; with ``seam`` the last block's output is left unquantized."""
+    block = _conv_basic if kind == "basic" else _conv_bottleneck
+    for pi, (si, bi) in enumerate(plan):
+        x = block(x, stages[si][bi], strides[si] if bi == 0 else 1,
+                  s_h1=scales.h1[si][bi], s_h2=scales.h2[si][bi])
+        if not (seam and pi == len(plan) - 1):
+            x = _sandwich(x, scales.block_out[si][bi])
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -385,115 +401,141 @@ def _head_logits_flat(fc_tile, feats: torch.Tensor, px: int) -> torch.Tensor:
     return F.linear(pooled.to(torch.bfloat16).float(), w) + lin.bias.float()
 
 
+def _device_stages(folded: FoldedTrunk, n_stages: int, device, fold_scale=None):
+    """The first ``n_stages`` stages of ``folded`` as device conv tuples
+    (OIHW bf16 weight, bf16 bias per conv). ``fold_scale`` folds a dequant
+    scale into layer2 block0's input convs (c1 and the projection), so int8
+    patches enter it as plain bf16 converts."""
+    proj = 6 if folded.kind == "bottleneck" else 4
+    stages = []
+    for si, stage in enumerate(folded.stages[:n_stages]):
+        blocks = []
+        for bi, ws in enumerate(stage):
+            fold0 = fold_scale is not None and si == 1 and bi == 0
+            convs = []
+            for j in range(0, len(ws), 2):
+                scale = fold_scale if fold0 and j in (0, proj) else None
+                convs.extend(_device_conv(ws[j], ws[j + 1], device, scale))
+            blocks.append(tuple(convs))
+        stages.append(blocks)
+    return stages
+
+
+def _gemm_land(folded: FoldedTrunk, scales: TrunkScales, span: int,
+               first_stage: int, w2_impl: str, device):
+    """(device params, metas) of the int8 GEMM trunk from ``first_stage``
+    on a ``span`` x ``span`` map."""
+    host_params, metas = build_q8_backend(folded, scales, span, span,
+                                          first_stage=first_stage,
+                                          w2_impl=w2_impl)
+    return upload_q8_params(host_params, device), metas
+
+
 class DenseTileProbs:
-    """The q8dg sweep: ``(images u8 [G, hw, hw, 3], flip [G] or None) ->
-    probs [G, T]`` in reference tile order, on the model's device.
+    """The dense shared-stem sweep: ``(images u8 [G, hw, hw, 3], flip [G]
+    or None) -> probs [G, T]`` in reference tile order, on the model's
+    device.
 
     Stem + layer1 run once per image (ops/dense_frontend.py); each tile's
-    8x8 patch runs layer2 as bf16 convs with int8 sandwiches, then layers
-    3-4 as int8 GEMMs (ops/q8_trunk.py). ``fc_tile`` is read from the model
-    at every call, since stage 2 retrains the head between sweeps."""
+    /4 patch then runs the rest of the trunk. ``backend="gemm"`` (q8dg):
+    layer2 as bf16 convs with int8 sandwiches, layers 3-4 as int8 GEMMs
+    (ops/q8_trunk.py); ``backend="conv"`` (q8d): layers 2-4 as bf16 convs
+    with the conv-land sandwiches, pooled in bf16. ``fc_tile`` is read from
+    the model at every call, since stage 2 retrains the head between
+    sweeps."""
 
     def __init__(self, model: MILNet, folded: FoldedTrunk, meta,
-                 scales: TrunkScales, gemm_span: int, first_stage: int,
+                 scales: TrunkScales, backend: str = "gemm",
                  w2_impl: str = "auto"):
         dev = next(model.parameters()).device
         self.model = model
         self.meta = meta
-        self.scales = scales
+        self.kind = folded.kind
+        self.backend = backend
         self.strides = tuple(folded.strides)
-        self.first_stage = first_stage
-        s0 = float(scales.block_out[0][-1])
-        self.s0 = s0
-        stem = _device_conv(folded.stem_w, folded.stem_b, dev)
-        stages = []
-        for si, stage in enumerate(folded.stages[:first_stage]):
-            blocks = []
-            for bi, ws in enumerate(stage):
-                # the s8 patches enter layer2 block0 as plain bf16 converts,
-                # with their dequant scale s0 folded into its c1 and proj
-                fold0 = si == 1 and bi == 0
-                convs = []
-                for j in range(0, len(ws), 2):
-                    scale = s0 if fold0 and j in (0, 6) else None
-                    convs.extend(_device_conv(ws[j], ws[j + 1], dev, scale))
-                blocks.append(tuple(convs))
-            stages.append(blocks)
-        self.tree = (*stem, stages)
-        host_params, self.metas = build_q8_backend(
-            folded, scales, gemm_span, gemm_span, first_stage=first_stage,
-            w2_impl=w2_impl,
-        )
-        self.qparams = upload_q8_params(host_params, dev)
+        self.s0 = float(scales.block_out[0][-1])
+        if backend == "gemm":
+            self.scales = scales
+            n_conv = GEMM_FIRST_STAGE
+            # conv-land halves the /4 span at each stage's block0 (stride 2)
+            span = meta.tile_size // 4
+            for _ in range(GEMM_FIRST_STAGE - 1):
+                span = (span + 1) // 2
+            self.qparams, self.metas = _gemm_land(folded, scales, span,
+                                                  GEMM_FIRST_STAGE, w2_impl, dev)
+        else:
+            self.scales = conv_trunk_scales(scales)
+            n_conv = len(folded.stages)
+        self.tree = (*_device_conv(folded.stem_w, folded.stem_b, dev),
+                     _device_stages(folded, n_conv, dev, fold_scale=self.s0))
 
     def _stem0(self, u8: torch.Tensor) -> torch.Tensor:
         flip0 = torch.zeros((u8.shape[0],), dtype=torch.int32, device=u8.device)
         x = normalize_images(u8, flip0, dtype=torch.bfloat16)
-        x1 = trunk_forward(self.tree, self.strides, x, self.scales, n_stages=1)
+        x1 = trunk_forward(self.tree, self.strides, x, self.scales, n_stages=1,
+                           kind=self.kind)
         return _q8(x1, self.s0)
 
     @torch.no_grad()
     def __call__(self, images: torch.Tensor, flip: Optional[torch.Tensor]):
         g = images.shape[0]
-        meta, scales = self.meta, self.scales
-        patches = frontend_patches(meta, self._stem0, images, flip)
+        patches = frontend_patches(self.meta, self._stem0, images, flip)
         m0 = patches.shape[0]
-        x = patches.to(torch.bfloat16).permute(0, 3, 1, 2)
-        plan = [(si, bi) for si in range(1, self.first_stage)
-                for bi in range(len(self.tree[2][si]))]
-        for pi, (si, bi) in enumerate(plan):
-            x = _conv_bottleneck(
-                x, self.tree[2][si][bi], self.strides[si] if bi == 0 else 1,
-                s_h1=scales.h1[si][bi], s_h2=scales.h2[si][bi],
-            )
-            if pi < len(plan) - 1:
-                x = _sandwich(x, scales.block_out[si][bi])
-        si, bi = plan[-1]
-        # conv/GEMM seam: quantize, flatten NHWC into whole-tile [N, px*C]
-        xq = _q8(x, scales.block_out[si][bi]).permute(0, 2, 3, 1).reshape(m0, -1)
-        feats = q8_backend_forward(self.qparams, self.metas, xq)
-        last = self.metas[-1]
-        logits = _head_logits_flat(self.model.fc_tile, feats,
-                                   last.h_out * last.w_out)
+        stages = self.tree[2]
+        plan = [(si, bi) for si in range(1, len(stages))
+                for bi in range(len(stages[si]))]
+        gemm = self.backend == "gemm"
+        x = _blocks_forward(patches.to(torch.bfloat16).permute(0, 3, 1, 2),
+                            stages, self.strides, plan, self.scales, self.kind,
+                            seam=gemm)
+        if gemm:
+            # conv/GEMM seam: quantize, flatten NHWC into whole-tile [N, px*C]
+            si, bi = plan[-1]
+            xq = _q8(x, self.scales.block_out[si][bi]).permute(0, 2, 3, 1)
+            feats = q8_backend_forward(self.qparams, self.metas, xq.reshape(m0, -1))
+            last = self.metas[-1]
+            logits = _head_logits_flat(self.model.fc_tile, feats,
+                                       last.h_out * last.w_out)
+        else:
+            logits = _head_logits(self.model.fc_tile, x.permute(0, 2, 3, 1))
         probs = torch.softmax(logits.float(), dim=-1)[:, 1]
-        return unpermute_probs(meta, probs.reshape(g, -1), flip)
+        return unpermute_probs(self.meta, probs.reshape(g, -1), flip)
 
 
 def make_dense_tile_probs(
     model: MILNet, tile_size: int, interval: int, hw: int,
     calib_tiles: np.ndarray, scales: Optional[TrunkScales] = None,
-    w2_impl: str = "auto",
+    w2_impl: str = "auto", backend: str = "gemm",
 ) -> Optional[DenseTileProbs]:
-    """Build the dense shared-stem sweep (q8dg); None when the arch (an
-    ungrouped Bottleneck ResNet) or the grid does not qualify. ``scales`` replaces the calibration (a test feeds
-    the JAX package's TrunkScales through it); ``w2_impl`` picks the GEMM
-    trunk's 3x3 form (ops/q8_trunk.py ``W2_IMPLS``).
+    """Build the dense shared-stem sweep: ``backend="gemm"`` is q8dg, for an
+    ungrouped Bottleneck ResNet; ``backend="conv"`` is q8d, for any
+    ungrouped ResNet. None when the arch or the grid does not qualify.
+    ``scales`` replaces the calibration (a test feeds the JAX package's
+    TrunkScales through it); ``w2_impl`` picks the GEMM trunk's 3x3 form
+    (ops/q8_trunk.py ``W2_IMPLS``).
 
-    The conv/GEMM split is the JAX engine's default: layer2 in conv-land,
-    layers 3-4 (from stage ``GEMM_FIRST_STAGE``, block 0) as int8 GEMMs."""
+    q8dg's conv/GEMM split is the JAX engine's default: layer2 in
+    conv-land, layers 3-4 (from stage ``GEMM_FIRST_STAGE``, block 0) as
+    int8 GEMMs."""
     folded = fold_tile_trunk(model)
     meta = dense_grid_meta(hw, tile_size, interval)
-    if folded is None or folded.kind != "bottleneck" or meta is None:
+    if folded is None or meta is None or (
+            backend == "gemm" and folded.kind != "bottleneck"):
         return None
     if scales is None:
         scales = calibrate_trunk(folded, np.asarray(calib_tiles, np.float32))
-    # conv-land halves the /4 span at each stage's block0 (stride 2)
-    span = tile_size // 4
-    for _ in range(GEMM_FIRST_STAGE - 1):
-        span = (span + 1) // 2
-    return DenseTileProbs(model, folded, meta, scales, span, GEMM_FIRST_STAGE,
-                          w2_impl)
+    return DenseTileProbs(model, folded, meta, scales, backend, w2_impl)
 
 
 # ---------------------------------------------------------------------------
-# the per-tile q8 engine
+# the per-tile engines: q8 (conv-land) and q8g (GEMM-land from layer2)
 # ---------------------------------------------------------------------------
 
 
 def conv_trunk_scales(scales: TrunkScales) -> TrunkScales:
-    """The per-tile engine's sandwich points of ``scales``: block outputs in
-    the first SANDWICH_STAGES stages, h1/h2 in the first INTRA_STAGES, no
-    projection scales (the JAX package's ``calibrate_trunk(deep=False)``)."""
+    """The conv-land engines' sandwich points of ``scales``: block outputs
+    in the first SANDWICH_STAGES stages, h1/h2 in the first INTRA_STAGES,
+    no projection scales (the JAX package's ``calibrate_trunk(deep=False)``)."""
     def keep(rows, depth):
         return [[v if si < depth else None for v in row]
                 for si, row in enumerate(rows)]
@@ -528,11 +570,8 @@ class TileTrunkLogits:
         self.kind = folded.kind
         self.strides = tuple(folded.strides)
         self.scales = scales
-        stem = _device_conv(folded.stem_w, folded.stem_b, dev)
-        stages = [[tuple(t for j in range(0, len(ws), 2)
-                         for t in _device_conv(ws[j], ws[j + 1], dev))
-                   for ws in stage] for stage in folded.stages]
-        self.tree = (*stem, stages)
+        self.tree = (*_device_conv(folded.stem_w, folded.stem_b, dev),
+                     _device_stages(folded, len(folded.stages), dev))
 
     @torch.no_grad()
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
@@ -541,20 +580,57 @@ class TileTrunkLogits:
         return _head_logits(self.model.fc_tile, x4)
 
 
+class TileGemmLogits:
+    """The per-tile q8g engine: normalized bf16 NHWC tiles [N, ts, ts, 3] ->
+    f32 tile logits [N, 2] on the model's device. Stem and layer1 run as
+    bf16 convs with their sandwiches; layer1's output is quantized at the
+    seam into the whole-tile [N, px*C] layout, and layers 2-4 run as int8
+    GEMMs (ops/q8_trunk.py) from the tile's /4 map. ``fc_tile`` is read
+    from the model at every call."""
+
+    def __init__(self, model: MILNet, folded: FoldedTrunk, scales: TrunkScales,
+                 tile_size: int, w2_impl: str = "auto"):
+        dev = next(model.parameters()).device
+        self.model = model
+        self.strides = tuple(folded.strides)
+        self.scales = scales
+        self.s0 = float(scales.block_out[0][-1])
+        self.tree = (*_device_conv(folded.stem_w, folded.stem_b, dev),
+                     _device_stages(folded, 1, dev))
+        span = tile_size // 4  # stem s2 + maxpool s2
+        self.qparams, self.metas = _gemm_land(folded, scales, span, 1, w2_impl, dev)
+
+    @torch.no_grad()
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        x1 = trunk_forward(self.tree, self.strides, x, self.scales, n_stages=1)
+        xq = _q8(x1, self.s0).reshape(x1.shape[0], -1)
+        feats = q8_backend_forward(self.qparams, self.metas, xq)
+        last = self.metas[-1]
+        return _head_logits_flat(self.model.fc_tile, feats, last.h_out * last.w_out)
+
+
 def make_fast_tile_logits(
     model: MILNet, calib_tiles: Optional[np.ndarray] = None,
-    scales: Optional[TrunkScales] = None,
-) -> Optional[TileTrunkLogits]:
-    """Build the per-tile q8 engine (the JAX package's
-    ``make_fast_tile_logits(backend="conv")``); None for an encoder that
-    does not fold. The scales come from ``calib_tiles`` (normalized f32
-    pilot tiles) or are given as ``scales`` (any depth: the engine keeps
-    its own points of them)."""
+    scales: Optional[TrunkScales] = None, backend: str = "conv",
+    tile_size: Optional[int] = None, w2_impl: str = "auto",
+):
+    """Build a per-tile engine (the JAX package's ``make_fast_tile_logits``):
+    ``backend="conv"`` is q8 (``TileTrunkLogits``), ``backend="gemm"`` q8g
+    (``TileGemmLogits``, for ``tile_size`` tiles; a BasicBlock trunk takes
+    the conv backend, as in the JAX package). None for an encoder that does
+    not fold. The scales come from ``calib_tiles`` (normalized f32 pilot
+    tiles) or are given as ``scales``: q8 keeps its own points of any
+    calibration, q8g needs every point (the projections' too)."""
     folded = fold_tile_trunk(model)
     if folded is None:
         return None
     if scales is None:
         if calib_tiles is None:
-            raise ValueError("the per-tile q8 engine needs calib_tiles or scales")
+            raise ValueError("the per-tile engines need calib_tiles or scales")
         scales = calibrate_trunk(folded, np.asarray(calib_tiles, np.float32))
+    if backend == "gemm" and folded.kind == "bottleneck":
+        if scales.proj is None:
+            raise ValueError("the q8g engine needs every calibration point "
+                             "(TrunkScales with proj)")
+        return TileGemmLogits(model, folded, scales, tile_size, w2_impl)
     return TileTrunkLogits(model, folded, conv_trunk_scales(scales))

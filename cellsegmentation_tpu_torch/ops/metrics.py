@@ -1,5 +1,5 @@
-"""Metrics (host numpy): tile error rates and the quadratic weighted kappa,
-LYSTO's headline count metric."""
+"""Metrics (host numpy): tile error rates, the quadratic weighted kappa,
+LYSTO's headline count metric, and point precision and recall."""
 
 from __future__ import annotations
 
@@ -47,3 +47,14 @@ def quadratic_weighted_kappa(rater_a, rater_b, min_rating=None,
     conf = np.zeros((k, k), dtype=np.float64)
     np.add.at(conf, (a - min_rating, b - min_rating), 1)
     return _kappa_from_confusion(conf)
+
+
+def precision_recall(tp, fp, fn, return_f1: bool = False):
+    """Precision and recall (and F1) of point counts, with the reference's
+    empty-set conventions: a zero denominator gives 1 for P and R, and 0 for
+    F1."""
+    p = 1 if tp + fp == 0 else tp / (tp + fp)
+    r = 1 if tp + fn == 0 else tp / (tp + fn)
+    if return_f1:
+        return p, r, 0 if p + r == 0 else (2 * p * r) / (p + r)
+    return p, r

@@ -16,13 +16,18 @@ package's, so flags carry over:
 - ``"flax"``: the model's own graph on extracted tiles (exact per-tile);
 - ``"q8"``: the per-tile q8 engine, the folded conv trunk with int8
   sandwiches on extracted tiles (ops/infer_engine.py);
-- ``"q8dg"``: the dense shared-stem int8-GEMM sweep (ops/infer_engine.py);
-- ``"auto"``: q8dg whenever the grid lies on the /4 stem lattice and the
-  arch folds to it (an ungrouped Bottleneck ResNet), on any device; else
-  per-tile q8 (any ungrouped ResNet); else, without calibration images or
-  scales, or for an encoder that does not fold, the exact per-tile graph.
+- ``"q8g"``: per tile, stem and layer1 in conv-land, layers 2-4 as int8
+  GEMMs (the conv trunk for a BasicBlock encoder);
+- ``"q8dg"``: the dense shared-stem sweep with layers 3-4 as int8 GEMMs
+  (with layers 2-4 in conv-land for a BasicBlock encoder);
+- ``"q8d"``: the dense shared-stem sweep with layers 2-4 in conv-land;
+- ``"auto"``: q8dg on any device.
 
-The q8g engine and the q8d conv trunk come with a later slice.
+The dense engines need a grid on the /4 stem lattice; elsewhere, as in
+the JAX package, ``"q8dg"`` falls back to q8g and ``"q8d"`` and
+``"auto"`` to q8. Every engine but flax needs calibration images or
+scales: without them a request runs the exact graph, as does an encoder
+that does not fold. The step's ``resolved_engine`` names what runs.
 
 ``make_tile_train_step`` trains the tile head on selected tiles with the
 encoder frozen (BatchNorm on running statistics, no autograd graph through
@@ -43,8 +48,9 @@ from cellsegmentation_tpu_torch.ops.losses import count_weights, dice_coef
 from cellsegmentation_tpu_torch.ops.q8_trunk import W2_IMPLS
 from cellsegmentation_tpu_torch.ops.tiles import extract_tiles, tile_grid
 
-ENGINES = ("flax", "auto", "q8", "q8dg")
-_LATER = ("q8g", "q8d")
+ENGINES = ("flax", "auto", "q8", "q8g", "q8d", "q8dg")
+# the per-tile engine a dense request falls back to off the /4 lattice
+_PER_TILE_FALLBACK = {"q8d": "q8", "q8dg": "q8g", "auto": "q8"}
 
 
 def _as_device(x, device, dtype=None) -> torch.Tensor:
@@ -59,50 +65,58 @@ def make_tile_infer_step(
     """Tile sweep over whole uint8 images [G, H, W, 3] on ``device`` (the
     CUDA card unless ``device="cpu"``; the model must already live there).
 
-    ``coords`` is the static [T, 2] grid. The q8 engines need
+    ``coords`` is the static [T, 2] grid. The engines other than flax need
     ``calib_images`` (uint8 full frames) for the int8 scale calibration, or
-    ``scales`` (a TrunkScales) to skip it: without either, ``"auto"`` and
-    ``"q8"`` run the exact graph, as in the JAX package, and ``"q8dg"``
-    raises; ``w2_impl`` picks the GEMM trunk's 3x3 form (ops/q8_trunk.py
-    ``W2_IMPLS``, a speed switch: the forms are bit-identical). The step's
-    ``resolved_engine`` names the engine that runs, and ``engine`` holds
-    the built q8 engine."""
+    ``scales`` (a TrunkScales) to skip it; ``w2_impl`` picks the GEMM
+    trunk's 3x3 form (ops/q8_trunk.py ``W2_IMPLS``, a speed switch: the
+    forms are bit-identical). The step's ``resolved_engine`` names the
+    engine that runs, and ``engine`` holds the built engine."""
     dev = model_device(model, device)
     if w2_impl not in W2_IMPLS:
         raise ValueError(f"w2_impl must be one of {W2_IMPLS}, got {w2_impl!r}")
-    if engine in _LATER:
-        raise NotImplementedError(
-            f"engine={engine!r} is not ported yet; the q8g engine and the "
-            "q8d conv trunk come with a later slice of the port"
-        )
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}; expected one of {ENGINES}")
     coords = np.asarray(coords)
+    calibrated = calib_images is not None or scales is not None
 
-    built, resolved = _try_dense_engine(
-        model, tile_size, coords, engine, calib_images, scales, w2_impl
-    )
-    if built is not None:
-        @torch.no_grad()
-        def infer_dense(images, flip):
-            f = np.asarray(flip.cpu() if torch.is_tensor(flip) else flip)
-            imgs = _as_device(images, dev)
-            # flip-free batches take the graph without selects or reversal
-            return built(imgs, _as_device(f, dev) if f.any() else None)
+    dense = _resolve_dense_engine(engine)
+    if dense is not None and calibrated:
+        built = _build_dense_engine(model, tile_size, coords, dense,
+                                    calib_images, scales, w2_impl)
+        if built is not None:
+            if engine == "auto":
+                # auto changes stem/layer1 numerics against the per-tile
+                # zero-padded forward (real neighbour pixels at tile
+                # borders); say so per build
+                print(
+                    f"[engine] auto -> {dense} (dense shared-stem sweep; "
+                    "validated approximation of the per-tile forward — pass "
+                    "engine='flax' for exact per-tile numerics)"
+                )
 
-        infer_dense.resolved_engine = resolved
-        infer_dense.engine = built
-        return infer_dense
+            @torch.no_grad()
+            def infer_dense(images, flip):
+                f = np.asarray(flip.cpu() if torch.is_tensor(flip) else flip)
+                imgs = _as_device(images, dev)
+                # flip-free batches take the graph without selects or reversal
+                return built(imgs, _as_device(f, dev) if f.any() else None)
 
-    fast = _build_tile_engine(model, tile_size, coords, engine, calib_images,
-                              scales)
+            infer_dense.resolved_engine = dense
+            infer_dense.engine = built
+            return infer_dense
+        engine = _PER_TILE_FALLBACK[engine]
+
+    fast = None
+    if engine in ("q8", "q8g", "auto") and calibrated:
+        fast = _build_tile_engine(model, tile_size, coords, engine, calib_images,
+                                  scales, w2_impl)
     if fast is not None:
         @torch.no_grad()
         def infer_q8(images, flip):
             return _q8_tile_body(fast, tile_size, _as_device(images, dev),
                                  _as_device(flip, dev), coords)
 
-        infer_q8.resolved_engine = "q8"
+        infer_q8.resolved_engine = "q8g" if engine == "q8g" else "q8"
         infer_q8.engine = fast
         return infer_q8
 
@@ -117,50 +131,27 @@ def make_tile_infer_step(
 
 def _resolve_dense_engine(engine: str):
     """The dense engine an ``engine`` request maps to, if any: explicit
-    ``"q8dg"`` is honored and ``"auto"`` promotes to it on every device.
+    ``"q8d"`` and ``"q8dg"`` are honored, and ``"auto"`` promotes to q8dg
+    on every device.
 
     The JAX package promotes ``"auto"`` only off its CPU backend, where its
     GEMM kernels run as Pallas in interpret mode, a Python loop per grid
     cell. The port's CPU versions of the kernels are plain PyTorch at full
     speed, so it promotes on the CPU too, a deliberate difference: the CPU
-    then runs the engine the card runs. Where q8dg does not qualify, both
-    fall back alike, to per-tile q8."""
-    return "q8dg" if engine in ("q8dg", "auto") else None
+    then runs the engine the card runs. Where the dense engines do not
+    qualify, both fall back alike (``_PER_TILE_FALLBACK``)."""
+    if engine in ("q8d", "q8dg"):
+        return engine
+    return "q8dg" if engine == "auto" else None
 
 
-def _try_dense_engine(model, tile_size, coords, engine, calib_images, scales,
-                      w2_impl):
-    """(built engine or None, resolved engine name or None)."""
-    dense_try = _resolve_dense_engine(engine)
-    if dense_try is None:
-        return None, None
-    if calib_images is None and scales is None:
-        if engine == "auto":
-            return None, None
-        raise ValueError("engine='q8dg' needs calib_images or scales")
-    built = _build_dense_engine(model, tile_size, coords, calib_images, scales,
-                                w2_impl)
-    if built is None:
-        if engine == "q8dg":
-            raise ValueError("engine='q8dg' needs an ungrouped Bottleneck "
-                             "ResNet and a /4-aligned product tile grid")
-        return None, None
-    if engine == "auto":
-        # auto changes stem/layer1 numerics against the per-tile zero-padded
-        # forward (real neighbour pixels at tile borders); say so per build
-        print(
-            f"[engine] auto -> {dense_try} (dense shared-stem sweep; "
-            "validated approximation of the per-tile forward — pass "
-            "engine='flax' for exact per-tile numerics)"
-        )
-    return built, dense_try
-
-
-def _build_dense_engine(model, tile_size, coords, calib_images, scales,
+def _build_dense_engine(model, tile_size, coords, dense, calib_images, scales,
                         w2_impl):
-    """The q8dg sweep, or None when the grid or the arch does not qualify.
-    The image size comes from the calibration images; the coordinate table
-    must be the canonical product grid of ``tile_grid``."""
+    """The dense sweep ``dense`` names, or None when the grid or the arch
+    does not qualify. The image size comes from the calibration images; the
+    coordinate table must be the canonical product grid of ``tile_grid``.
+    q8dg on a BasicBlock encoder builds the conv-land chain, as the JAX
+    package's does."""
     from cellsegmentation_tpu_torch.ops.infer_engine import (
         calib_tiles_from_images,
         make_dense_tile_probs,
@@ -178,24 +169,29 @@ def _build_dense_engine(model, tile_size, coords, calib_images, scales,
         return None
     calib = (None if calib_images is None
              else calib_tiles_from_images(calib_images, coords, tile_size))
-    return make_dense_tile_probs(model, tile_size, interval, hw, calib,
-                                 scales=scales, w2_impl=w2_impl)
+    built = None
+    if dense == "q8dg":
+        built = make_dense_tile_probs(model, tile_size, interval, hw, calib,
+                                      scales=scales, w2_impl=w2_impl)
+    return built or make_dense_tile_probs(model, tile_size, interval, hw, calib,
+                                          scales=scales, backend="conv")
 
 
-def _build_tile_engine(model, tile_size, coords, engine, calib_images, scales):
-    """The per-tile q8 engine for an ``"q8"`` or ``"auto"`` request, or None:
-    without calibration images or scales, or for an encoder that does not
-    fold (the exact graph serves those, as in the JAX package)."""
+def _build_tile_engine(model, tile_size, coords, engine, calib_images, scales,
+                       w2_impl):
+    """The per-tile engine of a ``"q8"``, ``"q8g"`` or ``"auto"`` request
+    (q8g: the GEMM backend), or None for an encoder that does not fold (the
+    exact graph serves those, as in the JAX package)."""
     from cellsegmentation_tpu_torch.ops.infer_engine import (
         calib_tiles_from_images,
         make_fast_tile_logits,
     )
 
-    if engine not in ("q8", "auto") or (calib_images is None and scales is None):
-        return None
     calib = (None if calib_images is None else
              calib_tiles_from_images(np.asarray(calib_images), coords, tile_size))
-    return make_fast_tile_logits(model, calib, scales)
+    return make_fast_tile_logits(model, calib, scales,
+                                 backend="gemm" if engine == "q8g" else "conv",
+                                 tile_size=tile_size, w2_impl=w2_impl)
 
 
 def _flat_tiles(images, flip, coords, tile_size):
@@ -221,11 +217,19 @@ def _q8_tile_body(fast, tile_size, images, flip, coords):
 
 
 def _tile_infer_body(model, tile_size, images, flip, coords):
-    """The exact per-tile graph: the tiles flipped, one [G*T] forward in the
-    compute dtype."""
+    """The exact per-tile graph: the tiles flipped, forwards in the compute
+    dtype in passes of at most ``Q8_TILE_CHUNK`` tiles (test_tile's 32/5
+    grid at image batch 128 is 387,200 tiles; each tile's result does not
+    depend on the split)."""
+    from cellsegmentation_tpu_torch.ops.infer_engine import Q8_TILE_CHUNK
+
     flat, flip_t = _flat_tiles(images, flip, coords, tile_size)
-    logits = model(normalize_images(flat, flip_t, dtype=model.policy.compute_dtype),
-                   mode="tile")
+    dtype = model.policy.compute_dtype
+    logits = torch.cat([
+        model(normalize_images(flat[i:i + Q8_TILE_CHUNK], flip_t[i:i + Q8_TILE_CHUNK],
+                               dtype=dtype), mode="tile")
+        for i in range(0, len(flat), Q8_TILE_CHUNK)
+    ])
     return torch.softmax(logits.float(), dim=-1)[:, 1].reshape(images.shape[0], -1)
 
 

@@ -296,7 +296,7 @@ def train_stage2(
     h, w = train_source.image_hw
     coords = tile_grid(h, w, tile_size, interval)
     calib = (pick_calib_images(train_source.images)
-             if infer_engine in ("q8", "q8dg", "auto") else None)
+             if infer_engine != "flax" else None)
     stack_infer_fn = make_stack_tile_infer_step(
         model, tile_size, coords, engine=infer_engine, calib_images=calib,
         device=dev, w2_impl=w2_impl,

@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch/CUDA port (cellsegmentation_tpu_torch).
 
-Drives the port's stage-1, stage-2 and stage-3 paths on one CUDA card, at
-the full width of ResNet-50 MILNet on 299^2 images (stage 2: 32-px tiles,
-interval 20, 225 tiles per image; stage 3's draw: 16-px tiles, interval 5,
-3,364 tiles per image), with seeded random weights and seeded synthetic
-LYSTO images:
+Drives the port's stage-1, stage-2 and stage-3 paths and its serving
+CLIs' paths on one CUDA card, at the full width of ResNet-50 MILNet on
+299^2 images (stage 2: 32-px tiles, interval 20, 225 tiles per image;
+stage 3's draw: 16-px tiles, interval 5, 3,364 tiles per image;
+test_tile: 32-px tiles, interval 5, 3,025 tiles per image; detection:
+1,200x1,600-px ROIs in 299-px patches), with seeded random weights and
+seeded synthetic LYSTO images:
 
 1. device: the card's name and power limit, the TF32 flags;
 2. build: csrc/q8_gemm_sm90.cu, the wgmma/TMA core of all four kernels,
@@ -18,8 +20,12 @@ LYSTO images:
    twice L2) and warm, beside ``torch._int_mm`` on the same GEMM (and
    cuDNN's bf16 conv for the 3x3s) and the card's bound for the work, which
    no time may beat; each 3x3 of the auto form beside its rowtap form;
-   then the GEMM-land seam (``q8_backend_forward``) on one captured entry
-   tensor in both 3x3 forms, bit-identical, timed in turns;
+   then the q8g engine's calls of one sweep step (GEMM-land from the
+   tile's 8x8 map: 29 q8_matmul_px, 5 q8_conv3_tap, 8 q8_matmul; the
+   64-group layer2 reduce among them) and its row-Toeplitz form's layer-2
+   3x3s, checked and timed alike; then the GEMM-land seam
+   (``q8_backend_forward``) on one captured entry tensor in both 3x3
+   forms, bit-identical, timed in turns;
 4. slice: ``make_tile_infer_step(engine="auto")`` must resolve to q8dg;
    ``inference_tiles`` over flip-free and flipped image batches and
    ``sample_topk``, with launch counts of 1 tap, 8 q8_matmul and 20
@@ -55,10 +61,27 @@ LYSTO images:
    that this gate must reject; the pt3 file into a fresh model, whose seg
    probabilities are bit-equal to the trained model's; profiles of one
    draw batch and one seg step;
-9. profile: device time by kernel over one sweep step: 29 launches of the
+9. serve: the q8g and q8d sweeps at 299/32/20, counted (q8g: the launches
+   above per image batch; q8d: none), timed in turns with q8dg, each
+   against the port on the CPU and against the exact graph; then
+   ``test_tile``'s path at its defaults (32/5 grid, threshold 0.95, image
+   batch 128) on 64 images with the flax, q8 and q8g engines, where q8dg
+   and auto must resolve to q8g and q8;
+10. detect: with ``cv2`` and ``sklearn`` unimportable, ``cell_detect`` as
+   ``test_seg --detect`` runs it (batch 8) on the [stage3] pt3 model over
+   four 1,200x1,600 ROI arrays (30 patches each), with and without the dot
+   images: the CSV rows are each stitched mask's top-count centres, the
+   mask PNGs decode to the masks stitched from the seg step's own outputs,
+   the counts are the sums of the patches' rounded counts, no hand-written
+   kernel runs; host time of the localization by part, the device's busy
+   share; one patch batch's seg probs card vs CPU; the localization alone
+   on planted cells (each found within 2 px, F1 1); ``test_seg``'s point
+   evaluation on 16 images;
+11. profile: device time by kernel over one sweep step: 29 launches of the
    wgmma kernel under its own name and no other hand-written kernel;
-10. one JSON line with every kernel's launches and times;
-11. last line: {"ok": true, "device": {...}}.
+12. one JSON line with every kernel's launches and times (the q8g path's
+   kernels as entries of their own, ``"path": "q8g"``);
+13. last line: {"ok": true, "device": {...}}.
 
 Run from the repository root: ``python3 chip_smoke.py`` (one card). Exits
 non-zero, printing no result, when a phase fails or no card is present.
@@ -117,6 +140,28 @@ Q8DG_EXACT_MEAN = 0.1
 MIN_RANK_CORR = 0.8
 # uncounted sweeps timed after the counted one; images/s is their median
 SWEEP_REPEATS = 4
+# q8g's hand-written kernel calls per sweep step (image batch): layers 3-4
+# as q8dg's (8 / 20 / 1), layer 2 from the tile's 8x8 map (9 q8_matmul_px,
+# 4 q8_conv3_tap), as the JAX package's q8g makes them (counted on the CPU,
+# tests/test_torch_port_serve.py)
+Q8G_LAUNCHES = {"q8_matmul": 8, "q8_matmul_px": 29, "q8_conv3_tap": 5,
+                "q8_conv3_rowtap": 0}
+# [serve]: test_tile's defaults (32/5 grid, threshold 0.95, image batch 128)
+# on SERVE_TILE_IMAGES synthetic images, with these engines
+SERVE_TILE_IMAGES, SERVE_TILE_BATCH = 64, 128
+SERVE_TILE_ENGINES = ("flax", "q8", "q8g")
+# [detect]: test_seg --detect's batch on DETECT_IMAGES ROI arrays of
+# DETECT_HW px (30 patches of 299 px each)
+DETECT_IMAGES, DETECT_HW, DETECT_BATCH = 4, (1200, 1600), 8
+# The seg probs of one patch batch, card vs CPU: the same bf16 model on
+# both, cuDNN and oneDNN rounding bf16 convs in other places through the
+# encoder and the decoder's 16 convs. Set before the first chip run.
+DETECT_CARD_CPU_MAX, DETECT_CARD_CPU_MEAN = 0.05, 0.005
+# planted cells for the localization alone: every centre within this many
+# px of a kept one
+PLANTED_TOL_PX = 2
+# test_seg's point evaluation on this many images
+POINT_EVAL_IMAGES = 16
 # One train step on the card against the same step through the port on the
 # CPU, same weights and tiles. The encoder runs bf16 convs on both (cuDNN
 # and oneDNN round in other places: with HEAD_SCALE the exact graph's
@@ -329,9 +374,9 @@ def phase_build():
                 print(f"[build]   {ln.strip()}")
 
 
-def _capture_calls(engine, images):
-    """Run one sweep step with the trunk's kernel entry points wrapped, and
-    return every (wrapper, args, kwargs) it made, in order."""
+def _capture_calls(run):
+    """Call ``run()`` (one sweep step) with the trunk's kernel entry points
+    wrapped, and return every (wrapper, args, kwargs) it made, in order."""
     from cellsegmentation_tpu_torch.ops import q8_trunk
 
     calls = []
@@ -347,7 +392,7 @@ def _capture_calls(engine, images):
     for n in names:
         setattr(q8_trunk, n, recorder(orig[n]))
     try:
-        engine(images, None)
+        run()
     finally:
         for n in names:
             setattr(q8_trunk, n, orig[n])
@@ -468,9 +513,11 @@ def _in_turns(fns, args, kw, cold=True):
     return ms
 
 
-def phase_kernels(calls):
-    """Each kernel against its plain version at the main path's shapes,
-    timed cold and warm beside its bound and library yardsticks."""
+def _measure_calls(calls, tag):
+    """Each captured call through its kernel and its plain version (int8 and
+    int32 bit-exact, bf16 within 1 ulp), timed cold and warm in CUDA graphs
+    beside its bound and library yardsticks; per-kernel sums, and the
+    (wrapper, cold ms) of each 3x3 call in order."""
     import torch
 
     from cellsegmentation_tpu_torch.kernels import q8_gemm as tq
@@ -512,7 +559,8 @@ def phase_kernels(calls):
         s["warm_ms"] += warm_ms
         s["wrapper_ms"] += cuda_ms(lambda: fn(*args, **kw), iters=20)
         s["plain_ms"] += cuda_ms(lambda: tq.PLAIN[fn](*args, **kw), iters=3, warmup=1)
-        s["lib_ms"] += graph_ms(torch._int_mm, lib_args, cold=True)
+        lib_ms = graph_ms(torch._int_mm, lib_args, cold=True)
+        s["lib_ms"] += lib_ms
         s["lib_warm_ms"] += graph_ms(torch._int_mm, lib_args)
         s["ops"] += ops
         s["lib_ops"] += lib_ops
@@ -537,11 +585,43 @@ def phase_kernels(calls):
             del conv, cargs, ckw
         if fn in (tq.q8_matmul, tq.q8_conv3_tap, tq.q8_conv3_rowtap):
             three.append((fn, ms))
-        print(f"[kernels] {fn.__name__:15s} {shape:28s} {opts} "
+        print(f"[{tag}] {fn.__name__:15s} {shape:28s} {opts} "
               f"res={kw.get('residual') is not None} max_err={err};{tile} cold "
               f"{ms:.5f} ms, warm {warm_ms:.5f} ms, bound {bound:.5f} ms "
               f"({'bytes' if t_bytes > t_ops else 'operations'}, "
-              f"{100 * bound / ms:.1f}%)")
+              f"{100 * bound / ms:.1f}%); torch._int_mm {lib_ms:.5f} ms cold "
+              f"({lib_ops / ops:.2f}x the operations)")
+    return stats, three
+
+
+def _print_stats(stats, tag, where="per image batch"):
+    from cellsegmentation_tpu_torch.kernels import q8_gemm as tq
+
+    for fn, s in stats.items():
+        if not s["calls"]:
+            continue
+        share = s["bound_ms"] / s["ms"]
+        check(share <= 1.0, f"{fn.__name__}: {100 * share:.1f}% of its bound")
+        cudnn = (f", cuDNN bf16 conv2d (channels-last) {s['cudnn_ms']:.4f} ms cold / "
+                 f"{s['cudnn_warm_ms']:.4f} warm"
+                 if fn in (tq.q8_conv3_tap, tq.q8_conv3_rowtap) else "")
+        print(f"[{tag}] {fn.__name__}: {s['calls']} calls {where}, "
+              f"{s['ops'] / 1e9:.3f} G int8 ops, max_abs_err {s['err']}, kernel "
+              f"{s['ms']:.4f} ms cold, {s['warm_ms']:.4f} ms warm (CUDA graphs; "
+              f"{s['wrapper_ms']:.4f} ms eager through the wrapper), plain "
+              f"{s['plain_ms']:.4f} ms, torch._int_mm {s['lib_ms']:.4f} ms cold / "
+              f"{s['lib_warm_ms']:.4f} warm ({s['lib_ops'] / s['ops']:.2f}x the "
+              f"kernel's operations){cudnn}, bound {s['bound_ms']:.4f} ms "
+              f"({'bytes' if s['bytes_ms'] > s['ops_ms'] else 'operations'}; "
+              f"{100 * share:.1f}% of it, cold)")
+
+
+def phase_kernels(calls):
+    """Each kernel against its plain version at the main path's shapes,
+    timed cold and warm beside its bound and library yardsticks."""
+    from cellsegmentation_tpu_torch.kernels import q8_gemm as tq
+
+    stats, three = _measure_calls(calls, "kernels")
     blocks = [f"layer3.{i}" for i in range(6)] + [f"layer4.{i}" for i in range(3)]
     auto = [(fn, ms) for fn, ms in three if fn is not tq.q8_conv3_rowtap]
     row = [ms for fn, ms in three if fn is tq.q8_conv3_rowtap]
@@ -554,20 +634,31 @@ def phase_kernels(calls):
           f"rowtap form {sum(row):.4f} ms cold")
     for fn, s in stats.items():
         check(s["calls"] > 0, f"{fn.__name__}: no call on the main path")
-        share = s["bound_ms"] / s["ms"]
-        check(share <= 1.0, f"{fn.__name__}: {100 * share:.1f}% of its bound")
-        cudnn = (f", cuDNN bf16 conv2d (channels-last) {s['cudnn_ms']:.4f} ms cold / "
-                 f"{s['cudnn_warm_ms']:.4f} warm"
-                 if fn in (tq.q8_conv3_tap, tq.q8_conv3_rowtap) else "")
-        print(f"[kernels] {fn.__name__}: {s['calls']} calls per image batch, "
-              f"{s['ops'] / 1e9:.3f} G int8 ops, max_abs_err {s['err']}, kernel "
-              f"{s['ms']:.4f} ms cold, {s['warm_ms']:.4f} ms warm (CUDA graphs; "
-              f"{s['wrapper_ms']:.4f} ms eager through the wrapper), plain "
-              f"{s['plain_ms']:.4f} ms, torch._int_mm {s['lib_ms']:.4f} ms cold / "
-              f"{s['lib_warm_ms']:.4f} warm ({s['lib_ops'] / s['ops']:.2f}x the "
-              f"kernel's operations){cudnn}, bound {s['bound_ms']:.4f} ms "
-              f"({'bytes' if s['bytes_ms'] > s['ops_ms'] else 'operations'}; "
-              f"{100 * share:.1f}% of it, cold)")
+    _print_stats(stats, "kernels")
+    return stats
+
+
+def phase_kernels_q8g(calls, calls_row):
+    """The q8g engine's GEMM-land, from the 8x8 layer1 map of a 32-px tile:
+    every call of one sweep step (layer2's are shapes no other engine
+    sends: the 64-group 1x1 reduce, the stride-2 tap from 8x8, the 4x4
+    taps) and the row-Toeplitz form's layer-2 3x3s, each against its plain
+    version and timed as [kernels] times them."""
+    from cellsegmentation_tpu_torch.kernels import q8_gemm as tq
+
+    kinds = {fn.__name__: sum(c[0] is fn for c in calls) for fn in tq.KERNELS}
+    check(kinds == Q8G_LAUNCHES, f"q8g step calls {kinds}, want {Q8G_LAUNCHES}")
+    first = calls[0]
+    check(first[0] is tq.q8_matmul_px and first[2]["px"] == tq.SM90_MAX_GROUPS,
+          f"q8g's first call {first[0].__name__} {first[2].get('px')}")
+    row_l2 = [c for c in calls_row if c[0] is tq.q8_conv3_rowtap][:4]
+    check([c[2]["h_in"] for c in row_l2] == [8, 4, 4, 4],
+          f"rowtap layer-2 inputs {[c[2]['h_in'] for c in row_l2]}")
+    stats, _ = _measure_calls(calls, "kernels-q8g")
+    row_stats, _ = _measure_calls(row_l2, "kernels-q8g")
+    stats[tq.q8_conv3_rowtap] = row_stats[tq.q8_conv3_rowtap]
+    _print_stats(stats, "kernels-q8g",
+                 "per image batch (rowtap: layer 2's 4 in the rowtap form)")
     return stats
 
 
@@ -689,7 +780,9 @@ def phase_slice(args, card, model, step, src):
     check(e_g.mean() <= Q8DG_EXACT_MEAN and e_g.mean() <= e_c.mean() + CARD_CPU_MEAN,
           f"q8dg sits {e_g.mean():.5f} from the exact graph on the card "
           f"(CPU: {e_c.mean():.5f})")
-    return launches, probs, ips, float(e_g.mean())
+    ref = {"images": imgs, "flip": flip, "exact_card": lf_g, "exact_cpu": lf_c,
+           "cpu_model": cpu_model}
+    return launches, probs, ips, float(e_g.mean()), ref
 
 
 def _warm_flips(step, src, image_batch):
@@ -1595,6 +1688,363 @@ def phase_stage3(args, card):
     _profile_rows("stage3", f"one seg train step of {STAGE3_BATCH} images", profile_step,
                   top=12)
     print(f"[stage3] phase {time.perf_counter() - t_phase:.1f} s")
+    return ck
+
+
+def phase_serve(args, card, model, steps, src, ref):
+    """The other serving engines on the 32/20 grid (q8g and q8d sweeps,
+    counted, timed in turns with q8dg; each against the CPU and the exact
+    graph), then test_tile's path at its defaults with three engines."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from cellsegmentation_tpu_torch.cli import test_tile
+    from cellsegmentation_tpu_torch.data import LystoTestSource, make_synthetic_arrays
+    from cellsegmentation_tpu_torch.kernels import q8_gemm as tq
+    from cellsegmentation_tpu_torch.ops.tiles import tile_grid
+    from cellsegmentation_tpu_torch.train.steps import make_tile_infer_step
+
+    t_phase = time.perf_counter()
+    n_batches = math.ceil(len(src) / args.image_batch)
+    check(steps["q8g"].resolved_engine == "q8g" and steps["q8d"].resolved_engine == "q8d",
+          f"engines {steps['q8g'].resolved_engine} / {steps['q8d'].resolved_engine}")
+    launches = {}
+    for name in ("q8g", "q8d"):
+        _warm_flips(steps[name], src, args.image_batch)
+        tq.reset_launch_counts()
+        probs, _ = _sweep(src, steps[name], args)
+        launches[name] = {fn.__name__: fn.launches for fn in tq.KERNELS}
+        want = Q8G_LAUNCHES if name == "q8g" else dict.fromkeys(Q8G_LAUNCHES, 0)
+        for k, per in want.items():
+            check(launches[name][k] == per * n_batches,
+                  f"{name}: {k} {launches[name][k]} launches, want {per} x {n_batches}")
+        check(probs.shape == (len(src), 225) and bool(np.isfinite(probs).all()),
+              f"{name} probs {probs.shape}")
+        print(f"[serve] {name} sweep launches over {n_batches} image batches: "
+              f"{launches[name]}")
+    passes = {"q8dg": [], "q8g": [], "q8d": []}
+    for i in range(SWEEP_REPEATS):
+        for name in (list(passes) if i % 2 == 0 else list(reversed(passes))):
+            passes[name].append(_sweep(src, steps[name], args)[1])
+    ips = {k: len(src) / float(np.median(v)) for k, v in passes.items()}
+    print(f"[serve] sweeps at 299/32/20, image batch {args.image_batch}, in turns, s: "
+          f"{ {k: [round(x, 4) for x in v] for k, v in passes.items()} }; median "
+          f"images/s: " + ", ".join(f"{k} {v:.1f}" for k, v in ips.items())
+          + f" on {card}")
+
+    # each engine on the card against the port on the CPU (the same scales)
+    # and against the exact graph on each device
+    imgs, flip = ref["images"], ref["flip"]
+    for name in ("q8g", "q8d"):
+        cpu_step = make_tile_infer_step(ref["cpu_model"], args.tile, _coords(args),
+                                        engine=name, scales=steps[name].engine.scales,
+                                        device="cpu")
+        check(cpu_step.resolved_engine == name, f"CPU {name} -> {cpu_step.resolved_engine}")
+        lg = _logodds(steps[name](imgs, flip).cpu().numpy())
+        lc = _logodds(cpu_step(imgs, flip).numpy())
+        d = np.abs(lg - lc)
+        e_g, e_c = np.abs(ref["exact_card"] - lg), np.abs(ref["exact_cpu"] - lc)
+        rank = [float(np.corrcoef(_ranks(lg[i]), _ranks(lc[i]))[0, 1])
+                for i in range(len(imgs))]
+        print(f"[serve] {name} log-odds, card vs CPU: max {d.max():.5f} mean "
+              f"{d.mean():.6f} (limits {CARD_CPU_MAX} / {CARD_CPU_MEAN}), rank corr "
+              f"{[round(r, 4) for r in rank]}; vs the exact graph: card max "
+              f"{e_g.max():.5f} mean {e_g.mean():.6f}, CPU max {e_c.max():.5f} mean "
+              f"{e_c.mean():.6f} (limits: card mean <= {Q8DG_EXACT_MEAN} and <= CPU "
+              f"mean + {CARD_CPU_MEAN})")
+        check(d.max() <= CARD_CPU_MAX and d.mean() <= CARD_CPU_MEAN,
+              f"card and CPU {name} differ by max {d.max():.5f} mean {d.mean():.6f}")
+        check(min(rank) >= MIN_RANK_CORR, f"{name}: card and CPU rank differently {rank}")
+        check(e_g.mean() <= Q8DG_EXACT_MEAN and e_g.mean() <= e_c.mean() + CARD_CPU_MEAN,
+              f"{name} sits {e_g.mean():.5f} from the exact graph on the card "
+              f"(CPU: {e_c.mean():.5f})")
+
+    # test_tile's path at its defaults: off the /4 lattice, q8dg -> q8g and
+    # auto -> q8
+    coords5 = tile_grid(args.hw, args.hw, 32, 5)
+    for engine, want in (("q8dg", "q8g"), ("auto", "q8"), ("q8d", "q8")):
+        st = make_tile_infer_step(model, 32, coords5, engine=engine, device="cuda",
+                                  scales=steps["q8g"].engine.scales)
+        check(st.resolved_engine == want,
+              f"{engine} resolves to {st.resolved_engine} on the 32/5 grid, want {want}")
+    a = make_synthetic_arrays(SERVE_TILE_IMAGES, args.hw, 30, seed=args.seed + 7)
+    tsrc = LystoTestSource.from_arrays(a["images"], a["organs"])
+    probs = {}
+    with tempfile.TemporaryDirectory() as out:
+        for engine in SERVE_TILE_ENGINES:
+            targs = test_tile.build_parser().parse_args(
+                ["-m", "unused", "--infer_engine", engine, "-B", str(SERVE_TILE_BATCH),
+                 "-o", f"{out}/{engine}"])
+            os.makedirs(targs.output)
+            tq.reset_launch_counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            res = test_tile.evaluate_tiles(model, tsrc, targs, 0, "cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            n_launch = sum(fn.launches for fn in tq.KERNELS)
+            p = res["probs"]
+            check(res["resolved_engine"] == engine, f"test_tile ran {res['resolved_engine']}")
+            check(p.shape == (len(tsrc), len(coords5)) and bool(np.isfinite(p).all()),
+                  f"test_tile probs {p.shape}")
+            check((n_launch > 0) == (engine == "q8g"),
+                  f"test_tile {engine}: {n_launch} hand-written kernel launches")
+            n_png = len([f for f in os.listdir(targs.output) if f.endswith(".png")])
+            check(n_png == len(tsrc), f"{n_png} heatmaps")
+            probs[engine] = p
+            print(f"[serve] test_tile (32/5 grid, {len(coords5)} tiles an image, threshold "
+                  f"{targs.threshold}, image batch {targs.batch_size}) with {engine}: "
+                  f"{len(tsrc)} images in {wall:.2f} s, engine build and heatmaps "
+                  f"included ({len(tsrc) / wall:.1f} images/s); {len(res['groups'])} "
+                  f"tiles kept; {n_launch} hand-written kernel launches; peak memory "
+                  f"{peak / 2**30:.2f} GiB on {card}")
+    lo = {k: _logodds(v) for k, v in probs.items()}
+    print("[serve] test_tile log-odds against flax: " + ", ".join(
+        f"{k} mean {np.abs(lo[k] - lo['flax']).mean():.6f}" for k in lo if k != "flax"))
+    print(f"[serve] phase {time.perf_counter() - t_phase:.1f} s")
+    return launches["q8g"]
+
+
+def _block_cv2_sklearn() -> None:
+    """Make ``cv2`` and ``sklearn`` unimportable in this process, as on a
+    machine without them: a ``None`` entry in ``sys.modules`` fails every
+    later import and reads as absent to ``importlib.util.find_spec``."""
+    for name in ("cv2", "sklearn"):
+        check(sys.modules.get(name) is None, f"{name} was imported before [detect]")
+        sys.modules[name] = None
+
+
+def _cv2_sklearn_blocked() -> bool:
+    return all(name in sys.modules and sys.modules[name] is None
+               for name in ("cv2", "sklearn"))
+
+
+def _roi_images(args):
+    """DETECT_IMAGES uint8 ROI arrays of DETECT_HW px, each a mosaic of
+    seeded synthetic 299^2 LYSTO images."""
+    import numpy as np
+
+    from cellsegmentation_tpu_torch.data import make_synthetic_arrays
+
+    h, w = DETECT_HW
+    ny, nx = -(-h // args.hw), -(-w // args.hw)
+    a = make_synthetic_arrays(DETECT_IMAGES * ny * nx, args.hw, 30, seed=args.seed + 11)
+    tiles = a["images"].reshape(DETECT_IMAGES, ny, nx, args.hw, args.hw, 3)
+    return [np.concatenate(np.concatenate(t, axis=1), axis=1)[:h, :w] for t in tiles]
+
+
+def _planted_masks(n_masks=3, h=600, w=900, n_cells=40, seed=5):
+    """uint8 masks of sigma-5 Gaussian blobs at planted (row, col) centres
+    at least 40 px apart, and the centres."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[-20:21, -20:21]
+    blob = np.exp(-(yy ** 2 + xx ** 2) / (2 * 5.0 ** 2))
+    out = []
+    for _ in range(n_masks):
+        pts = []
+        while len(pts) < n_cells:
+            p = rng.integers((20, 20), (h - 20, w - 20))
+            if all(np.hypot(*(p - q)) >= 40 for q in pts):
+                pts.append(p)
+        m = np.zeros((h, w))
+        for cy, cx in pts:
+            win = m[cy - 20:cy + 21, cx - 20:cx + 21]
+            np.maximum(win, blob, out=win)
+        out.append(((255 * m).astype(np.uint8), np.asarray(pts)))
+    return out
+
+
+def phase_detect(args, card, ck):
+    """test_seg --detect on the stage-3 model, with cv2 and sklearn
+    unimportable: cell_detect over ROI arrays with and without the dot
+    images (its CSV, the stitched mask PNGs and the counts against the
+    steps' own outputs; no hand-written kernel), the seg probs of one patch
+    batch card vs CPU, the host time of the localization by part, the
+    device's busy share, the localization alone on planted cells, and
+    test_seg's point evaluation."""
+    import csv
+    import os
+
+    import numpy as np
+    import torch
+
+    _block_cv2_sklearn()
+
+    from cellsegmentation_tpu_torch.cli import test_seg
+    from cellsegmentation_tpu_torch.data import PointTestSource, make_synthetic_arrays
+    from cellsegmentation_tpu_torch.data.masks import MaskTestSource
+    from cellsegmentation_tpu_torch.detect import cell_detect, get_prf1, meanshift_cluster
+    from cellsegmentation_tpu_torch.detect import cluster
+    from cellsegmentation_tpu_torch.kernels import q8_gemm as tq
+    from cellsegmentation_tpu_torch.models import build_model
+    from cellsegmentation_tpu_torch.ops.tiles import tile_grid
+    from cellsegmentation_tpu_torch.train import checkpoint as ckpt_mod
+    from cellsegmentation_tpu_torch.train.steps import (
+        make_image_infer_step,
+        make_seg_infer_step,
+    )
+    from cellsegmentation_tpu_torch.utils.images import read_png
+
+    t_phase = time.perf_counter()
+    model = build_model("resnet50", device="cuda", seed=args.seed)
+    ckpt_mod.restore_into(model, ck)
+    rois = _roi_images(args)
+    names = ["roi_1.png", "roi_2.png", "slide-1000.png", "roi_4.png"][:DETECT_IMAGES]
+    src = MaskTestSource.from_arrays(rois, names)
+    per = [sum(1 for fi, _, _ in src.patch_index if fi == i) for i in range(len(names))]
+    grid = tile_grid(*DETECT_HW, src.patch_size, src.stride)
+    check(per == [len(grid)] * DETECT_IMAGES, f"patches per image {per}, want {len(grid)}")
+    seg, img = make_seg_infer_step(model, device="cuda"), make_image_infer_step(model,
+                                                                               device="cuda")
+    rec = {"masks": [], "counts": []}
+
+    def seg_rec(x, f):
+        out = seg(x, f)
+        rec["masks"].append(out.cpu().numpy())
+        return out
+
+    def img_rec(x, f):
+        probs, counts = img(x, f)
+        rec["counts"].append(counts.cpu().numpy())
+        return probs, counts
+
+    ps = src.patch_size
+    with tempfile.TemporaryDirectory() as out:
+        walls = {}
+        for output_image in (False, True):
+            rec["masks"].clear()
+            rec["counts"].clear()
+            tq.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            path = cell_detect(src, seg_rec, img_rec, batch_size=DETECT_BATCH,
+                               output_path=f"{out}/{output_image}",
+                               output_image=output_image, device="cuda")
+            walls[output_image] = time.perf_counter() - t0
+            launches = {fn.__name__: fn.launches for fn in tq.KERNELS}
+            check(not any(launches.values()), f"detection launched {launches}")
+            masks = np.concatenate(rec["masks"])
+            counts = np.round(np.concatenate(rec["counts"])).astype(int)
+            check(len(masks) == len(src), f"{len(masks)} seg outputs for {len(src)} patches")
+            with open(path) as f:
+                rows = list(csv.reader(f))
+            check(rows[0] == ["image_id", "x", "y"], f"CSV header {rows[0]}")
+            det = os.path.dirname(path)
+            stitched = [np.zeros(hw, np.uint8) for hw in src.image_sizes]
+            image_count = [0] * len(names)
+            for (fi, x, y), m, c in zip(src.patch_index, masks, counts):
+                h, w = src.image_sizes[fi]
+                stitched[fi][x:x + ps, y:y + ps] = np.uint8(255 * m)[:h - x, :w - y]
+                image_count[fi] += c
+            for fi, name in enumerate(names):
+                stem = os.path.splitext(name)[0]
+                base, off = ("slide", 1000) if stem == "slide-1000" else (stem, 0)
+                mine = [r for r in rows[1:] if r[0] == base]
+                check(np.array_equal(read_png(f"{det}/mask_{stem}.png"), stitched[fi]),
+                      f"mask_{stem}.png is not the stitched mask")
+                # the rows are the stitched mask's top-count centres, offset
+                kept = meanshift_cluster(stitched[fi], "gaussianblur", image_count[fi])[0]
+                check(mine == [[base, str(int(x) + off), str(int(y))] for x, y in kept],
+                      f"{name}: {len(mine)} CSV rows are not the mask's {len(kept)} "
+                      f"centres for count {image_count[fi]}")
+                if output_image:
+                    check(os.path.exists(f"{det}/{stem}_{image_count[fi]}cells.png"),
+                          f"{stem}: no dot image for count {image_count[fi]}")
+            check(len(rows) > 1 and {r[0] for r in rows[1:]} <= {"roi_1", "roi_2", "slide",
+                                                                  "roi_4"}, "CSV rows")
+            print(f"[detect] cell_detect (output_image={output_image}): {DETECT_IMAGES} "
+                  f"images of {DETECT_HW[0]}x{DETECT_HW[1]} px, {len(src)} patches at batch "
+                  f"{DETECT_BATCH} in {walls[output_image]:.2f} s "
+                  f"({len(src) / walls[output_image]:.1f} patches/s); {len(rows) - 1} cells, "
+                  f"counts {[int(c) for c in image_count]}; hand-written kernel launches "
+                  f"{launches}")
+
+        # the localization by part, per image, on the stitched masks
+        parts = {"blur": 0.0, "seeds and mean-shift": 0.0, "DBSCAN and ranking": 0.0}
+        for m in stitched:
+            t0 = time.perf_counter()
+            sm = cluster.smooth_mask(m, "gaussianblur")
+            t1 = time.perf_counter()
+            grid = tile_grid(*sm.shape, 16, 10)
+            seeds = grid[sm[grid[:, 0] + 8, grid[:, 1] + 8] > 0.2 * 255]
+            centers = cluster.vectorized_meanshift(sm, seeds, 16) if len(seeds) else seeds
+            t2 = time.perf_counter()
+            if len(centers):
+                cluster.dbscan_labels(centers, 15)
+            t3 = time.perf_counter()
+            for k, dt in zip(parts, (t1 - t0, t2 - t1, t3 - t2)):
+                parts[k] += dt / len(stitched)
+        print(f"[detect] host seconds per image: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in parts.items()) + f" ({len(seeds)} seeds on the last)")
+
+        # the device's busy share over one detection run
+        from torch.profiler import ProfilerActivity, profile
+
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            cell_detect(src, seg, img, batch_size=DETECT_BATCH, output_path=f"{out}/prof",
+                        output_image=False, device="cuda")
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        busy = sum((getattr(e, "self_device_time_total", 0) or 0) for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+        check(busy > 0, "the profiler recorded no device time")
+        print(f"[detect] device busy {busy:.3f} s of a {wall:.2f} s profiled detection run "
+              f"({100 * busy / wall:.1f}%)")
+
+    # one patch batch's seg probs, card vs CPU (the same bf16 model)
+    batch = np.stack([src.get_patch(i) for i in range(DETECT_BATCH)])
+    flip = np.zeros(DETECT_BATCH, np.int32)
+    cpu_model = build_model("resnet50", device="cpu", seed=args.seed)
+    ckpt_mod.restore_into(cpu_model, ck)
+    p_g = seg(batch, flip).cpu().numpy()
+    t0 = time.perf_counter()
+    p_c = make_seg_infer_step(cpu_model, device="cpu")(batch, flip).numpy()
+    cpu_s = time.perf_counter() - t0
+    d = np.abs(p_g - p_c)
+    print(f"[detect] seg probs of {DETECT_BATCH} patches, card vs CPU ({cpu_s:.1f} s on the "
+          f"CPU): max {d.max():.6f} mean {d.mean():.7f} (limits {DETECT_CARD_CPU_MAX} / "
+          f"{DETECT_CARD_CPU_MEAN}); P(positive) {p_g.min():.4f}..{p_g.max():.4f}")
+    check(d.max() <= DETECT_CARD_CPU_MAX and d.mean() <= DETECT_CARD_CPU_MEAN,
+          f"seg probs card vs CPU max {d.max():.6f} mean {d.mean():.7f}")
+
+    # the localization alone on planted cells
+    worst, n_cells = 0.0, 0
+    for mask, pts in _planted_masks():
+        kept, _ = meanshift_cluster(mask, "gaussianblur", cell_count=len(pts))
+        dist = np.hypot(*(pts[:, None, :] - kept[None, :, :]).transpose(2, 0, 1)).min(axis=1)
+        worst, n_cells = max(worst, float(dist.max())), n_cells + len(pts)
+        p, r, f1, tp, fp, fn = get_prf1(kept[:, ::-1], pts[:, ::-1])
+        check(f1 == 1 and len(kept) == len(pts), f"planted cells: F1 {f1} ({tp}/{fp}/{fn})")
+    check(worst <= PLANTED_TOL_PX, f"a planted centre found {worst:.2f} px off")
+    print(f"[detect] localization on planted cells: {n_cells} of {n_cells} found, worst "
+          f"{worst:.2f} px off (limit {PLANTED_TOL_PX}), F1 1.0; cv2 and sklearn "
+          f"unimportable: {_cv2_sklearn_blocked()}")
+
+    # test_seg's point evaluation
+    a = make_synthetic_arrays(POINT_EVAL_IMAGES, args.hw, 30, seed=args.seed + 13)
+    psrc = PointTestSource.from_arrays(
+        [f"p_{i + 1}.png" for i in range(POINT_EVAL_IMAGES)], a["images"],
+        [c[:, ::-1] for c in a["centers"]])
+    with tempfile.TemporaryDirectory() as out:
+        pargs = test_seg.build_parser().parse_args(["-m", "unused", "--reg_limit", "-o", out])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        test_seg.point_eval(pargs, model, psrc, "cuda")
+        wall = time.perf_counter() - t0
+        with open(f"{out}/center.csv") as f:
+            rows = list(csv.reader(f))
+    check(len(rows) == 1 + POINT_EVAL_IMAGES, f"center.csv rows {len(rows)}")
+    print(f"[detect] test_seg point evaluation: {POINT_EVAL_IMAGES} images in {wall:.2f} s "
+          f"({POINT_EVAL_IMAGES / wall:.1f} images/s) on {card}")
+    check(_cv2_sklearn_blocked(), "cv2 or sklearn was imported during [detect]")
+    print(f"[detect] phase {time.perf_counter() - t_phase:.1f} s")
 
 
 def _ranks(v):
@@ -1686,6 +2136,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     args.hw, args.tile, args.interval = 299, 32, 20
 
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -1726,21 +2177,36 @@ def main(argv=None) -> int:
             model, args.tile, _coords(args), engine="auto", device="cuda",
             scales=step.engine.scales, w2_impl="rowtap",
         )
+        # the other engines on the same calibration (the same pilot tiles)
+        serve = {"q8dg": step}
+        for engine in ("q8g", "q8d"):
+            serve[engine] = make_tile_infer_step(
+                model, args.tile, _coords(args), engine=engine, device="cuda",
+                scales=step.engine.scales)
+        q8g_row = make_tile_infer_step(model, args.tile, _coords(args), engine="q8g",
+                                       device="cuda", scales=step.engine.scales,
+                                       w2_impl="rowtap")
 
         phase = "kernels"
         batch = torch.as_tensor(src.images[: args.image_batch]).cuda()
-        calls = _capture_calls(step.engine, batch)
+        calls = _capture_calls(lambda: step.engine(batch, None))
         entry = calls[0][1][0]  # layer3 block0's reduce reads the int8 entry
-        calls += [c for c in _capture_calls(step_row.engine, batch)
+        calls += [c for c in _capture_calls(lambda: step_row.engine(batch, None))
                   if c[0] is tq.q8_conv3_rowtap]
         stats = phase_kernels(calls)
+
+        phase = "kernels-q8g"
+        flip0 = np.zeros(args.image_batch, np.int32)
+        stats_q8g = phase_kernels_q8g(_capture_calls(lambda: serve["q8g"](batch, flip0)),
+                                      _capture_calls(lambda: q8g_row(batch, flip0)))
+        del q8g_row
 
         phase = "seam"
         phase_seam(step, step_row, entry)
 
         phase = "slice"
-        launches, probs_auto, auto_ips, slice_gap = phase_slice(args, card, model,
-                                                                step, src)
+        launches, probs_auto, auto_ips, slice_gap, ref = phase_slice(args, card, model,
+                                                                     step, src)
 
         phase = "rowtap"
         row_launches = phase_rowtap(args, card, step, step_row, src, probs_auto,
@@ -1753,7 +2219,14 @@ def main(argv=None) -> int:
         phase_stage1(args, card, src, slice_gap)
 
         phase = "stage3"
-        phase_stage3(args, card)
+        pt3 = phase_stage3(args, card)
+
+        phase = "serve"
+        launches_q8g = phase_serve(args, card, model, serve, src, ref)
+        del ref
+
+        phase = "detect"
+        phase_detect(args, card, pt3)
 
         phase = "profile"
         phase_profile(step, src.images[: args.image_batch])
@@ -1781,6 +2254,22 @@ def main(argv=None) -> int:
             "library_ms": s["lib_ms"], "warm_ms": s["warm_ms"],
             "cudnn_ms": (s["cudnn_ms"] if fn in (tq.q8_conv3_tap, tq.q8_conv3_rowtap)
                          else None),
+        })
+    # the q8g path: its counted sweep in [serve], every call of its step in
+    # [kernels-q8g]
+    for fn in tq.KERNELS:
+        s = stats_q8g[fn]
+        if not launches_q8g[fn.__name__]:
+            continue
+        kernels.append({
+            "name": fn.__name__, "path": "q8g", "route": "cuda",
+            "source": SOURCES[fn.__name__], "replaces": REPLACES[fn.__name__],
+            "launches": launches_q8g[fn.__name__],
+            "max_abs_err": s["err"], "ms": s["ms"], "plain_ms": s["plain_ms"],
+            "bound_ms": s["bound_ms"],
+            "bound_by": "bytes" if s["bytes_ms"] > s["ops_ms"] else "operations",
+            "library_ms": s["lib_ms"], "warm_ms": s["warm_ms"],
+            "cudnn_ms": s["cudnn_ms"] if fn is tq.q8_conv3_tap else None,
         })
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

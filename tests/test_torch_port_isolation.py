@@ -8,6 +8,10 @@
   ``CST_PLATFORM=cpu`` is set.
 - ``chip_smoke.py`` without a card (or without the package beside it) exits
   non-zero and prints no result line.
+- Detection and the evaluation outputs import neither ``cv2`` nor
+  ``sklearn``, which the card's machine lacks: no import of them in their
+  modules, and the localization, detection from arrays and the heatmaps
+  run with both unimportable.
 """
 
 from __future__ import annotations
@@ -180,3 +184,69 @@ def test_chip_smoke_fails_without_a_card_or_the_package(tmp_path):
         proc = _run_smoke(cwd)
         assert proc.returncode != 0, proc.stdout
         assert '"ok"' not in proc.stdout and '"kernels"' not in proc.stdout
+
+
+# detection and the images it writes: no cv2, no sklearn, at any depth
+CV2_FREE = ("detect/__init__.py", "detect/cluster.py", "detect/detect.py",
+            "detect/metrics.py", "utils/images.py")
+
+
+@pytest.mark.parametrize("rel", CV2_FREE)
+def test_detection_imports_no_cv2_or_sklearn(rel):
+    path = ROOT / "cellsegmentation_tpu_torch" / rel
+    bad = [(ln, m) for ln, m in _imported_roots(path) if m in ("cv2", "sklearn")]
+    assert not bad, f"{rel} imports {bad}"
+
+
+def test_detection_runs_without_cv2_or_sklearn(monkeypatch, tmp_path):
+    """The localization (both methods), detection from arrays and the
+    heatmaps run with every import of cv2 or sklearn failing (a None entry
+    in sys.modules), and find each planted cell at its centre."""
+    from cellsegmentation_tpu_torch.data.masks import MaskTestSource
+    from cellsegmentation_tpu_torch.detect import cell_detect, meanshift_cluster
+    from cellsegmentation_tpu_torch.postprocess.masks import heatmap
+
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    monkeypatch.setitem(sys.modules, "sklearn", None)
+    with pytest.raises(ImportError):
+        import cv2  # noqa: F401
+    yy, xx = np.mgrid[:120, :150]
+    img = np.full((120, 150, 3), 200, np.uint8)
+    for cy, cx in ((30, 40), (80, 100), (60, 20)):
+        img[(yy - cy) ** 2 + (xx - cx) ** 2 < 36] = 20
+    mask = ((img[..., 2] < 100) * 255).astype(np.uint8)
+    for method in ("gaussianblur", "distancetransform"):
+        kept, _ = meanshift_cluster(mask, method)
+        assert sorted(map(tuple, kept)) == [(30, 40), (60, 20), (80, 100)], method
+
+    def seg(x, f):
+        return (x[..., 2] < 100).float()
+
+    def count(x, f):
+        return None, torch.full((x.shape[0],), 1.2)
+
+    src = MaskTestSource.from_arrays([img], ["roi-40.png"], patch_size=64)
+    path = cell_detect(src, seg, count, output_path=str(tmp_path), device="cpu")
+    with open(path) as f:
+        rows = f.read().split()
+    # each planted centre, the strip's x offset (40) added to its row
+    assert rows[0] == "image_id,x,y"
+    assert sorted(rows[1:]) == ["roi,100,20", "roi,120,100", "roi,70,40"], rows
+    heatmap(img[None], np.asarray([0]), np.asarray([[0, 0]]), np.asarray([0.9]), 32,
+            str(tmp_path / "heat"))
+    assert (tmp_path / "heat" / "test_00001.png").exists()
+
+
+def test_serving_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    from cellsegmentation_tpu_torch.cli import test_seg, test_tile
+    from cellsegmentation_tpu_torch.data.masks import MaskTestSource
+    from cellsegmentation_tpu_torch.detect import cell_detect
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    src = MaskTestSource.from_arrays([np.zeros((20, 20, 3), np.uint8)], patch_size=32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cell_detect(src, None, None, output_path=str(tmp_path))
+    monkeypatch.delenv("CST_PLATFORM", raising=False)
+    for main in (test_seg.main, test_tile.main):
+        with pytest.raises(RuntimeError, match="CST_PLATFORM=cpu"):
+            main(["-m", str(tmp_path / "none.ckpt"), "--data_path", str(tmp_path)])

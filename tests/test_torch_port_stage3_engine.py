@@ -168,9 +168,9 @@ def test_head_logits_pool_in_bf16_like_jax():
 
 def test_basic_block_per_tile_q8_matches_jax(fx):
     """A BasicBlock encoder folds for per-tile q8 as in the JAX package (and
-    never for q8dg): auto -> q8 on both sides, probs within the Bottleneck
-    test's limits (measured: 241 of 242 tiles within 1e-7, one int8 LSB
-    flip moved one by 1.1e-3)."""
+    never for q8dg's GEMM chain): auto -> q8 on both sides, probs within the
+    Bottleneck test's limits (measured: 241 of 242 tiles within 1e-7, one
+    int8 LSB flip moved one by 1.1e-3)."""
     jm, v, tm = _models(BasicBlock, JBasic)
     imgs, coords = fx["imgs"], fx["coords"]
     f = np.asarray([0, 2], np.int32)
@@ -186,19 +186,15 @@ def test_basic_block_per_tile_q8_matches_jax(fx):
 
 
 def test_engine_resolution_rules(fx):
-    """Without calibration images or scales, auto and q8 run the exact graph
-    (as in the JAX package) and q8dg raises; the unported q8g and q8d
-    raise; an unknown name is refused."""
+    """Without calibration images or scales every engine runs the exact
+    graph, as in the JAX package (q8dg, q8d and q8g included, which raised
+    before they were ported); an unknown name is refused; all six of the
+    JAX package's engines are offered."""
     _, _, tm = fx["bottleneck"]
     coords = fx["coords"]
-    for engine in ("auto", "q8", "flax"):
+    for engine in ("auto", "q8", "flax", "q8dg", "q8d", "q8g"):
         step = tsteps.make_tile_infer_step(tm, TILE, coords, engine=engine, device="cpu")
         assert step.resolved_engine == "flax", engine
-    with pytest.raises(ValueError, match="calib_images or scales"):
-        tsteps.make_tile_infer_step(tm, TILE, coords, engine="q8dg", device="cpu")
-    for engine in ("q8g", "q8d"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            tsteps.make_tile_infer_step(tm, TILE, coords, engine=engine, device="cpu")
     with pytest.raises(ValueError, match="unknown engine"):
         tsteps.make_tile_infer_step(tm, TILE, coords, engine="q9", device="cpu")
-    assert set(tsteps.ENGINES) == {"flax", "auto", "q8", "q8dg"}
+    assert set(tsteps.ENGINES) == {"flax", "auto", "q8", "q8g", "q8d", "q8dg"}
