@@ -4,7 +4,12 @@ from cellsegmentation_tpu_torch.data.batches import (
     BatchIterator,
     normalize_images,
 )
-from cellsegmentation_tpu_torch.data.lysto import LystoDataSource, LystoTestSource
+from cellsegmentation_tpu_torch.data.lysto import (
+    EnsembleSource,
+    LystoDataSource,
+    LystoTestSource,
+    SubsetSource,
+)
 from cellsegmentation_tpu_torch.data.masks import (
     MaskDataSource,
     MaskTestSource,
@@ -18,6 +23,8 @@ from cellsegmentation_tpu_torch.data.synthetic import (
 __all__ = [
     "LystoDataSource",
     "LystoTestSource",
+    "EnsembleSource",
+    "SubsetSource",
     "MaskDataSource",
     "MaskTestSource",
     "PointTestSource",

@@ -1,5 +1,5 @@
-"""LYSTO sources: the training/validation source and the unlabeled test
-source.
+"""LYSTO sources: the training/validation source, its k-fold ensemble
+views, and the unlabeled test source.
 
 - k-fold split by ``(i+1) % kfold``: fold members are the validation set;
 - the organ filter compares the prefix before '_';
@@ -161,6 +161,73 @@ class LystoDataSource:
         self.base_idx = np.concatenate([self.base_idx, base_idx])
         self.flip_code = np.concatenate([self.flip_code, flip_code])
         self.labels = np.concatenate([self.labels, labels])
+
+
+class SubsetSource:
+    """A sample-index view over a LystoDataSource sharing its image stack."""
+
+    def __init__(self, base: LystoDataSource, sample_indices: Sequence[int]):
+        sample_indices = np.asarray(sample_indices, dtype=np.int64)
+        self.images = base.images  # shared, not copied
+        self.base_idx = base.base_idx[sample_indices]
+        self.flip_code = base.flip_code[sample_indices]
+        self.labels = base.labels[sample_indices]
+        self.organs = [base.organs[base.base_idx[i]] for i in sample_indices]
+
+    def __len__(self) -> int:
+        return len(self.base_idx)
+
+    @property
+    def cls_labels(self) -> np.ndarray:
+        return categorize_np(self.labels)
+
+    @property
+    def image_hw(self) -> tuple[int, int]:
+        return self.images.shape[1], self.images.shape[2]
+
+    def gather_images(self, sample_indices: Sequence[int]) -> np.ndarray:
+        sample_indices = np.asarray(sample_indices)
+        return self.images[self.base_idx[sample_indices]]
+
+
+class EnsembleSource:
+    """k-fold bagging splits: one LystoDataSource over every image (no
+    validation fold of its own) and per-fold contiguous validation blocks,
+    the first ``N % k`` of ceil(N/k) samples and the rest of floor(N/k)
+    (``divmod``). ``fold(i)`` returns (train view, validation view), both
+    sharing the one image stack."""
+
+    def __init__(self, filepath: str, k: int = 10, augment: bool = False,
+                 num_of_imgs: int = 0, seed: int = 0):
+        self._setup(LystoDataSource(filepath, train=True, kfold=None,
+                                    augment=augment, num_of_imgs=num_of_imgs,
+                                    seed=seed), k)
+
+    @classmethod
+    def from_arrays(cls, images: np.ndarray, organs: Sequence, counts: np.ndarray,
+                    k: int = 10, augment: bool = False,
+                    seed: int = 0) -> "EnsembleSource":
+        """The same splits over arrays; ``organs`` may be str or bytes."""
+        src = cls.__new__(cls)
+        src._setup(LystoDataSource.from_arrays(images, organs, counts, train=True,
+                                               kfold=None, augment=augment,
+                                               seed=seed), k)
+        return src
+
+    def _setup(self, data: LystoDataSource, k: int) -> None:
+        self.data = data
+        self.k = k
+        size, extra = divmod(len(data), k)
+        bounds = [0]
+        for i in range(k):
+            bounds.append(bounds[-1] + size + (1 if i < extra else 0))
+        self._bounds = bounds
+
+    def fold(self, idx: int) -> tuple[SubsetSource, SubsetSource]:
+        lo, hi = self._bounds[idx], self._bounds[idx + 1]
+        val_idx = np.arange(lo, hi)
+        train_idx = np.concatenate([np.arange(0, lo), np.arange(hi, self._bounds[-1])])
+        return SubsetSource(self.data, train_idx), SubsetSource(self.data, val_idx)
 
 
 class LystoTestSource:

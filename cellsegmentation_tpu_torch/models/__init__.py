@@ -17,18 +17,23 @@ __all__ = ["MILNet", "ResNetEncoder", "Bottleneck", "BasicBlock",
            "build_model", "init_milnet", "MODEL_NAMES"]
 
 
-def _resnet(block, sizes, policy):
-    return MILNet(ResNetEncoder(block, sizes, policy=policy), policy=policy)
+def _resnet(block, sizes, policy, groups=1, base_width=64):
+    return MILNet(ResNetEncoder(block, sizes, policy=policy, groups=groups,
+                                base_width=base_width), policy=policy)
 
 
 _BUILDERS: Mapping[str, Callable[[Policy], MILNet]] = {
     "resnet18": lambda p: _resnet(BasicBlock, (2, 2, 2, 2), p),
     "resnet34": lambda p: _resnet(BasicBlock, (3, 4, 6, 3), p),
     "resnet50": lambda p: _resnet(Bottleneck, (3, 4, 6, 3), p),
+    # grouped 3x3s in every Bottleneck, with the expansion-4 seg decoder
+    "resnext50_32x4d": lambda p: _resnet(Bottleneck, (3, 4, 6, 3), p,
+                                         groups=32, base_width=4),
+    "resnext101_32x8d": lambda p: _resnet(Bottleneck, (3, 4, 23, 3), p,
+                                          groups=32, base_width=8),
 }
-# names the JAX package serves that later slices of the port add
-_LATER = ("resnext50_32x4d", "resnext101_32x8d", "efficientnet_b0",
-          "efficientnet_b2")
+# names the JAX package serves that a later slice of the port adds
+_LATER = ("efficientnet_b0", "efficientnet_b2")
 
 MODEL_NAMES = tuple(_BUILDERS)
 
@@ -39,8 +44,8 @@ def build_model(name: str, policy: Policy = DEFAULT_POLICY, device=None,
     ``device`` (the CUDA card unless ``device="cpu"`` is given)."""
     if name in _LATER:
         raise NotImplementedError(
-            f"{name} is not ported yet; ResNeXt and EfficientNet come with a "
-            "later slice of the port"
+            f"{name} is not ported yet; EfficientNet comes with a later "
+            "slice of the port"
         )
     if name not in _BUILDERS:
         raise KeyError(f"unknown model {name!r}; available: {MODEL_NAMES}")

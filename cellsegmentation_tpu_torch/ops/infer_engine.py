@@ -19,7 +19,12 @@
   block and around the 3x3s of the first ``INTRA_STAGES`` stages;
 - q8dg and q8g run their GEMM-land as one hand-written int8 GEMM per conv.
   Only a Bottleneck trunk has a GEMM-land: for a BasicBlock encoder both
-  take their conv-land form (q8d and q8), as in the JAX package.
+  take their conv-land form (q8d and q8), as in the JAX package. A grouped
+  (ResNeXt) trunk runs its 3x3s as grouped convs in conv-land and as their
+  block-diagonal expansion (ops/q8_trunk.py) in GEMM-land; q8g always
+  takes its GEMM-land, q8dg only when ``grouped_gemm`` asks for it (else it
+  runs the dense conv chain under its own name), as the JAX package's
+  engines do.
 
 Numerics: the JAX package's op order, modulo bf16 rounding placement and
 +-1 LSB int8 flips where a bf16 value sits on a quantization boundary.
@@ -104,25 +109,26 @@ class FoldedTrunk:
     """Folded host weights (HWIO), grouped per stage: [(block0 weights),
     (block1), ...] with (w1, b1, w2, b2, w3, b3[, wp, bp]) per Bottleneck
     (``kind="bottleneck"``) or (w1, b1, w2, b2[, wp, bp]) per BasicBlock
-    (``kind="basic"``)."""
+    (``kind="basic"``). A grouped Bottleneck's w2 is ``[3, 3, C/g, C]``."""
 
     stem_w: np.ndarray
     stem_b: np.ndarray
     stages: list
     strides: list  # per-stage stride of block 0
     kind: str = "bottleneck"
+    groups: int = 1  # the 3x3s' groups (ResNeXt)
 
 
 def fold_tile_trunk(model: MILNet) -> Optional[FoldedTrunk]:
-    """Fold an ungrouped ResNet encoder (Bottleneck or BasicBlock); None
-    for any other encoder (the caller falls back to the model's own
-    graph)."""
+    """Fold a ResNet encoder: Bottleneck (grouped for ResNeXt) or ungrouped
+    BasicBlock; None for any other encoder (the caller falls back to the
+    model's own graph)."""
     enc = model.encoder
-    if not isinstance(enc, ResNetEncoder) or enc.groups != 1:
+    if not isinstance(enc, ResNetEncoder):
         return None
     if enc.block_cls is Bottleneck:
         kind, n_convs = "bottleneck", 3
-    elif enc.block_cls is BasicBlock:
+    elif enc.block_cls is BasicBlock and enc.groups == 1:
         kind, n_convs = "basic", 2
     else:
         return None
@@ -140,7 +146,7 @@ def fold_tile_trunk(model: MILNet) -> Optional[FoldedTrunk]:
         stages.append(stage)
         strides.append(1 if s == 0 else 2)
     return FoldedTrunk(stem_w=stem_w, stem_b=stem_b, stages=stages,
-                       strides=strides, kind=kind)
+                       strides=strides, kind=kind, groups=int(enc.groups))
 
 
 # ---------------------------------------------------------------------------
@@ -169,29 +175,31 @@ def _sandwich(x: torch.Tensor, scale: Optional[float]) -> torch.Tensor:
     return _dq(_q8(x, scale), scale)
 
 
-def _cv(v, w, stride: int, pad: int):
-    return F.conv2d(v, w, None, stride, pad)
+def _cv(v, w, stride: int, pad: int, groups: int = 1):
+    return F.conv2d(v, w, None, stride, pad, 1, groups)
 
 
 def _conv_bias_relu(x, w, b, stride: int, pad: int):
     return F.relu(_cv(x, w, stride, pad) + b)
 
 
-def _conv_bottleneck(x, ws, stride: int, s_h1=None, s_h2=None):
-    """One folded Bottleneck, bf16 convs, optional intra-block sandwiches."""
+def _conv_bottleneck(x, ws, stride: int, s_h1=None, s_h2=None, groups: int = 1):
+    """One folded Bottleneck, bf16 convs, optional intra-block sandwiches;
+    the 3x3 is grouped for ResNeXt."""
     w1, b1, w2, b2, w3, b3 = ws[:6]
     h = F.relu(_cv(x, w1, 1, 0) + b1)
     h = _sandwich(h, s_h1)
-    h = F.relu(_cv(h, w2, stride, 1) + b2)
+    h = F.relu(_cv(h, w2, stride, 1, groups) + b2)
     h = _sandwich(h, s_h2)
     out = _cv(h, w3, 1, 0) + b3
     res = _cv(x, ws[6], stride, 0) + ws[7] if len(ws) == 8 else x
     return F.relu(out + res)
 
 
-def _conv_basic(x, ws, stride: int, s_h1=None, s_h2=None):
+def _conv_basic(x, ws, stride: int, s_h1=None, s_h2=None, groups: int = 1):
     """One folded BasicBlock (3x3 s, 3x3), bf16 convs, an optional
-    sandwich between the two 3x3s (``s_h2`` is unused: it has no h2)."""
+    sandwich between the two 3x3s (``s_h2`` is unused: it has no h2;
+    ``groups`` is always 1, as ``fold_tile_trunk`` folds no grouped one)."""
     w1, b1, w2, b2 = ws[:4]
     h = F.relu(_cv(x, w1, stride, 1) + b1)
     h = _sandwich(h, s_h1)
@@ -225,7 +233,7 @@ def _device_conv(w: np.ndarray, b: np.ndarray, device, scale=None):
 
 def trunk_forward(tree, strides, x: torch.Tensor, scales: TrunkScales,
                   n_stages: Optional[int] = None,
-                  kind: str = "bottleneck") -> torch.Tensor:
+                  kind: str = "bottleneck", groups: int = 1) -> torch.Tensor:
     """Normalized bf16 NHWC images -> the NHWC output of the first
     ``n_stages`` stages of ``tree`` (all by default): stem, maxpool, blocks
     with their sandwiches. A walk given ``n_stages`` ends at a seam and
@@ -237,18 +245,18 @@ def trunk_forward(tree, strides, x: torch.Tensor, scales: TrunkScales,
     x = _conv_bias_relu(x.permute(0, 3, 1, 2), stem_w, stem_b, 2, 3)
     x = F.max_pool2d(x, 3, 2, 1)
     plan = [(si, bi) for si in range(n_stages) for bi in range(len(stages[si]))]
-    x = _blocks_forward(x, stages, strides, plan, scales, kind, seam)
+    x = _blocks_forward(x, stages, strides, plan, scales, kind, seam, groups)
     return x.permute(0, 2, 3, 1)
 
 
 def _blocks_forward(x, stages, strides, plan, scales: TrunkScales, kind: str,
-                    seam: bool):
+                    seam: bool, groups: int = 1):
     """Run the blocks (stage, block) of ``plan`` on an NCHW map with their
     sandwiches; with ``seam`` the last block's output is left unquantized."""
     block = _conv_basic if kind == "basic" else _conv_bottleneck
     for pi, (si, bi) in enumerate(plan):
         x = block(x, stages[si][bi], strides[si] if bi == 0 else 1,
-                  s_h1=scales.h1[si][bi], s_h2=scales.h2[si][bi])
+                  s_h1=scales.h1[si][bi], s_h2=scales.h2[si][bi], groups=groups)
         if not (seam and pi == len(plan) - 1):
             x = _sandwich(x, scales.block_out[si][bi])
     return x
@@ -299,17 +307,19 @@ def calib_tiles_from_images(
     return (tiles - IMAGENET_MEAN) / IMAGENET_STD
 
 
-def _np_conv3(a: np.ndarray, k: np.ndarray, stride: int) -> np.ndarray:
-    """f32 3x3 pad-1 conv on the host: NHWC activations, HWIO kernel."""
+def _np_conv3(a: np.ndarray, k: np.ndarray, stride: int,
+              groups: int = 1) -> np.ndarray:
+    """f32 3x3 pad-1 conv on the host: NHWC activations, HWIO kernel
+    (``[3, 3, C/g, C']`` when grouped)."""
     y = F.conv2d(
         torch.from_numpy(np.ascontiguousarray(a, np.float32)).permute(0, 3, 1, 2),
         torch.from_numpy(np.ascontiguousarray(np.transpose(k, (3, 2, 0, 1)))),
-        None, stride, 1,
+        None, stride, 1, 1, groups,
     )
     return y.permute(0, 2, 3, 1).contiguous().numpy()
 
 
-def _instrumented_block_np(x, ws, stride, kind="bottleneck"):
+def _instrumented_block_np(x, ws, stride, kind="bottleneck", groups=1):
     """f32 forward of one folded block on the host, returning
     (y, h1, h2, res); res is the pre-add residual branch. A BasicBlock has
     no h2: its h1 comes back in both slots."""
@@ -332,7 +342,7 @@ def _instrumented_block_np(x, ws, stride, kind="bottleneck"):
     has_proj = len(ws) == 8
     w1, b1, w2, b2, w3, b3 = [np.asarray(a, np.float32) for a in ws[:6]]
     h1 = np.maximum(flat @ w1[0, 0] + b1, 0.0)
-    h2 = _np_conv3(h1.reshape(n, h, w, -1), w2, stride)
+    h2 = _np_conv3(h1.reshape(n, h, w, -1), w2, stride, groups)
     h2 = np.maximum(h2 + b2, 0.0)
     ho, wo = h2.shape[1], h2.shape[2]
     out = h2.reshape(-1, h2.shape[-1]) @ w3[0, 0] + b3
@@ -366,7 +376,7 @@ def calibrate_trunk(folded: FoldedTrunk, calib_tiles: np.ndarray) -> TrunkScales
             bo, b1, b2, pr = [], [], [], []
             for bi, ws in enumerate(stage):
                 y, h1, h2, res = _instrumented_block_np(
-                    x, ws, stride if bi == 0 else 1, folded.kind
+                    x, ws, stride if bi == 0 else 1, folded.kind, folded.groups
                 )
                 b1.append(_absmax_scale(h1))
                 b2.append(_absmax_scale(h2))
@@ -451,6 +461,7 @@ class DenseTileProbs:
         self.model = model
         self.meta = meta
         self.kind = folded.kind
+        self.groups = folded.groups
         self.backend = backend
         self.strides = tuple(folded.strides)
         self.s0 = float(scales.block_out[0][-1])
@@ -473,7 +484,7 @@ class DenseTileProbs:
         flip0 = torch.zeros((u8.shape[0],), dtype=torch.int32, device=u8.device)
         x = normalize_images(u8, flip0, dtype=torch.bfloat16)
         x1 = trunk_forward(self.tree, self.strides, x, self.scales, n_stages=1,
-                           kind=self.kind)
+                           kind=self.kind, groups=self.groups)
         return _q8(x1, self.s0)
 
     @torch.no_grad()
@@ -487,7 +498,7 @@ class DenseTileProbs:
         gemm = self.backend == "gemm"
         x = _blocks_forward(patches.to(torch.bfloat16).permute(0, 3, 1, 2),
                             stages, self.strides, plan, self.scales, self.kind,
-                            seam=gemm)
+                            seam=gemm, groups=self.groups)
         if gemm:
             # conv/GEMM seam: quantize, flatten NHWC into whole-tile [N, px*C]
             si, bi = plan[-1]
@@ -506,10 +517,12 @@ def make_dense_tile_probs(
     model: MILNet, tile_size: int, interval: int, hw: int,
     calib_tiles: np.ndarray, scales: Optional[TrunkScales] = None,
     w2_impl: str = "auto", backend: str = "gemm",
+    grouped_gemm: bool = False,
 ) -> Optional[DenseTileProbs]:
-    """Build the dense shared-stem sweep: ``backend="gemm"`` is q8dg, for an
-    ungrouped Bottleneck ResNet; ``backend="conv"`` is q8d, for any
-    ungrouped ResNet. None when the arch or the grid does not qualify.
+    """Build the dense shared-stem sweep: ``backend="gemm"`` is q8dg, for a
+    Bottleneck ResNet (a grouped one only with ``grouped_gemm``, the JAX
+    package's ``CST_GROUPED_GEMM``); ``backend="conv"`` is q8d, for any
+    ResNet that folds. None when the arch or the grid does not qualify.
     ``scales`` replaces the calibration (a test feeds the JAX package's
     TrunkScales through it); ``w2_impl`` picks the GEMM trunk's 3x3 form
     (ops/q8_trunk.py ``W2_IMPLS``).
@@ -519,8 +532,8 @@ def make_dense_tile_probs(
     int8 GEMMs."""
     folded = fold_tile_trunk(model)
     meta = dense_grid_meta(hw, tile_size, interval)
-    if folded is None or meta is None or (
-            backend == "gemm" and folded.kind != "bottleneck"):
+    if folded is None or meta is None or (backend == "gemm" and (
+            folded.kind != "bottleneck" or (folded.groups > 1 and not grouped_gemm))):
         return None
     if scales is None:
         scales = calibrate_trunk(folded, np.asarray(calib_tiles, np.float32))
@@ -568,6 +581,7 @@ class TileTrunkLogits:
         dev = next(model.parameters()).device
         self.model = model
         self.kind = folded.kind
+        self.groups = folded.groups
         self.strides = tuple(folded.strides)
         self.scales = scales
         self.tree = (*_device_conv(folded.stem_w, folded.stem_b, dev),
@@ -576,7 +590,7 @@ class TileTrunkLogits:
     @torch.no_grad()
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         x4 = trunk_forward(self.tree, self.strides, x, self.scales,
-                           kind=self.kind)
+                           kind=self.kind, groups=self.groups)
         return _head_logits(self.model.fc_tile, x4)
 
 
@@ -592,6 +606,7 @@ class TileGemmLogits:
                  tile_size: int, w2_impl: str = "auto"):
         dev = next(model.parameters()).device
         self.model = model
+        self.groups = folded.groups
         self.strides = tuple(folded.strides)
         self.scales = scales
         self.s0 = float(scales.block_out[0][-1])
@@ -602,7 +617,8 @@ class TileGemmLogits:
 
     @torch.no_grad()
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        x1 = trunk_forward(self.tree, self.strides, x, self.scales, n_stages=1)
+        x1 = trunk_forward(self.tree, self.strides, x, self.scales, n_stages=1,
+                           groups=self.groups)
         xq = _q8(x1, self.s0).reshape(x1.shape[0], -1)
         feats = q8_backend_forward(self.qparams, self.metas, xq)
         last = self.metas[-1]

@@ -20,6 +20,14 @@ The three forms quantize the same kernel with the same per-channel scales
 and accumulate the same int32 products, so they are bit-identical: the
 choice (``w2_impl``) is a speed switch only.
 
+A grouped (ResNeXt) 3x3 runs as its kernel expanded block-diagonally to a
+dense ``[3, 3, C, C']`` one (zeros off the group diagonal) through the
+ungrouped forms above, unchanged: g times the grouped conv's MACs, the JAX
+package's ``"blockdiag"`` form. (Its other form, ``"gdot"``, a batched
+per-group dot outside any Pallas kernel, is bit-identical to it, a speed
+alternative only, and is not ported: PyTorch has no batched int8 product
+on CUDA.)
+
 The host packing below is the JAX package's, verbatim (numpy), so the
 packed int8 weights are byte-identical to it. The kernels read each weight
 transposed (``[N, K]``); ``upload_q8_params`` transposes once per build.
@@ -41,8 +49,7 @@ from cellsegmentation_tpu_torch.kernels.q8_gemm import (
 )
 
 # the 3x3 formulations a trunk can be built with: two of the JAX package's
-# W2_IMPL values (its forced "tap"/"wholetile" forms have no caller here; its
-# grouped "gdot" form comes with the ResNeXt slice of the port)
+# W2_IMPL values (its forced "tap"/"wholetile" forms have no caller here)
 W2_IMPLS = ("auto", "rowtap")
 
 
@@ -64,6 +71,21 @@ def _per_channel_scale(k: np.ndarray) -> np.ndarray:
 
 def _quant_w(k: np.ndarray, scale: np.ndarray) -> np.ndarray:
     return np.clip(np.round(k / scale), -127, 127).astype(np.int8)
+
+
+def _expand_grouped(k2: np.ndarray, groups: int) -> np.ndarray:
+    """Grouped HWIO kernel [kh, kw, C/g, C'] -> dense block-diagonal
+    [kh, kw, C, C'] (zeros off the group diagonal), so the grouped 3x3 runs
+    through the ungrouped forms unchanged."""
+    kh, kw, cing, cout = k2.shape
+    coutg = cout // groups
+    big = np.zeros((kh, kw, cing * groups, cout), k2.dtype)
+    for gi in range(groups):
+        big[:, :, gi * cing : (gi + 1) * cing,
+            gi * coutg : (gi + 1) * coutg] = (
+            k2[:, :, :, gi * coutg : (gi + 1) * coutg]
+        )
+    return big
 
 
 def _wholetile_weight(k2: np.ndarray, h: int, w: int, stride: int):
@@ -130,7 +152,7 @@ class QBlockMeta:
     s_out: Optional[float]  # None -> final block, bf16 out
     has_proj: bool
     w2_impl: str = "wholetile"  # "wholetile" | "tap" | "rowtap"
-    groups: int = 1  # the grouped (ResNeXt) trunk comes with a later slice
+    groups: int = 1  # > 1 only in the JAX package's gdot form (not ported)
 
 
 def build_q8_backend(folded, scales, h_in: int, w_in: int,
@@ -142,7 +164,8 @@ def build_q8_backend(folded, scales, h_in: int, w_in: int,
 
     ``scales`` must be calibrated with deep=True (h1/h2 at every stage plus
     proj and block_out). ``w2_impl`` (one of ``W2_IMPLS``) picks every
-    block's 3x3 form, as the JAX package's ``W2_IMPL`` does."""
+    block's 3x3 form, as the JAX package's ``W2_IMPL`` does; a grouped
+    trunk's 3x3s run in it as their block-diagonal expansion."""
     if w2_impl not in W2_IMPLS:
         raise ValueError(f"w2_impl must be one of {W2_IMPLS}, got {w2_impl!r}")
     params: List[dict] = []
@@ -156,6 +179,8 @@ def build_q8_backend(folded, scales, h_in: int, w_in: int,
                 continue
             blk_stride = stride if bi == 0 else 1
             w1, b1, w2, b2, w3, b3 = [np.asarray(a, np.float32) for a in ws[:6]]
+            if folded.groups > 1:
+                w2 = _expand_grouped(w2, folded.groups)
             has_proj = len(ws) == 8
             c_in = w1.shape[2]
             c_mid = w1.shape[3]

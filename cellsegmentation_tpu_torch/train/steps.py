@@ -19,7 +19,8 @@ package's, so flags carry over:
 - ``"q8g"``: per tile, stem and layer1 in conv-land, layers 2-4 as int8
   GEMMs (the conv trunk for a BasicBlock encoder);
 - ``"q8dg"``: the dense shared-stem sweep with layers 3-4 as int8 GEMMs
-  (with layers 2-4 in conv-land for a BasicBlock encoder);
+  (with layers 2-4 in conv-land for a BasicBlock encoder, and for a grouped
+  one unless ``grouped_gemm`` asks for its GEMMs);
 - ``"q8d"``: the dense shared-stem sweep with layers 2-4 in conv-land;
 - ``"auto"``: q8dg on any device.
 
@@ -61,6 +62,7 @@ def _as_device(x, device, dtype=None) -> torch.Tensor:
 def make_tile_infer_step(
     model: MILNet, tile_size: int, coords, engine: str = "flax",
     calib_images=None, device=None, scales=None, w2_impl: str = "auto",
+    grouped_gemm: bool = False,
 ):
     """Tile sweep over whole uint8 images [G, H, W, 3] on ``device`` (the
     CUDA card unless ``device="cpu"``; the model must already live there).
@@ -69,8 +71,11 @@ def make_tile_infer_step(
     ``calib_images`` (uint8 full frames) for the int8 scale calibration, or
     ``scales`` (a TrunkScales) to skip it; ``w2_impl`` picks the GEMM
     trunk's 3x3 form (ops/q8_trunk.py ``W2_IMPLS``, a speed switch: the
-    forms are bit-identical). The step's ``resolved_engine`` names the
-    engine that runs, and ``engine`` holds the built engine."""
+    forms are bit-identical). ``grouped_gemm`` runs a grouped (ResNeXt)
+    trunk's layers 3-4 under q8dg as int8 GEMMs (the JAX package's
+    ``CST_GROUPED_GEMM``); without it q8dg runs the dense conv chain there.
+    The step's ``resolved_engine`` names the engine that runs, and
+    ``engine`` holds the built engine."""
     dev = model_device(model, device)
     if w2_impl not in W2_IMPLS:
         raise ValueError(f"w2_impl must be one of {W2_IMPLS}, got {w2_impl!r}")
@@ -82,7 +87,7 @@ def make_tile_infer_step(
     dense = _resolve_dense_engine(engine)
     if dense is not None and calibrated:
         built = _build_dense_engine(model, tile_size, coords, dense,
-                                    calib_images, scales, w2_impl)
+                                    calib_images, scales, w2_impl, grouped_gemm)
         if built is not None:
             if engine == "auto":
                 # auto changes stem/layer1 numerics against the per-tile
@@ -146,12 +151,13 @@ def _resolve_dense_engine(engine: str):
 
 
 def _build_dense_engine(model, tile_size, coords, dense, calib_images, scales,
-                        w2_impl):
+                        w2_impl, grouped_gemm):
     """The dense sweep ``dense`` names, or None when the grid or the arch
     does not qualify. The image size comes from the calibration images; the
     coordinate table must be the canonical product grid of ``tile_grid``.
-    q8dg on a BasicBlock encoder builds the conv-land chain, as the JAX
-    package's does."""
+    q8dg on a BasicBlock encoder, or on a grouped one without
+    ``grouped_gemm``, builds the conv-land chain, as the JAX package's
+    does."""
     from cellsegmentation_tpu_torch.ops.infer_engine import (
         calib_tiles_from_images,
         make_dense_tile_probs,
@@ -172,7 +178,8 @@ def _build_dense_engine(model, tile_size, coords, dense, calib_images, scales,
     built = None
     if dense == "q8dg":
         built = make_dense_tile_probs(model, tile_size, interval, hw, calib,
-                                      scales=scales, w2_impl=w2_impl)
+                                      scales=scales, w2_impl=w2_impl,
+                                      grouped_gemm=grouped_gemm)
     return built or make_dense_tile_probs(model, tile_size, interval, hw, calib,
                                           scales=scales, backend="conv")
 
@@ -236,6 +243,7 @@ def _tile_infer_body(model, tile_size, images, flip, coords):
 def make_stack_tile_infer_step(
     model: MILNet, tile_size: int, coords, engine: str = "flax",
     calib_images=None, device=None, w2_impl: str = "auto",
+    grouped_gemm: bool = False,
 ):
     """The tile sweep over images gathered from a device-resident stack:
     ``(images_stack u8 [N, H, W, 3] on the device, idx [G], flip [G]) ->
@@ -246,7 +254,7 @@ def make_stack_tile_infer_step(
     not in the stack."""
     infer_step = make_tile_infer_step(
         model, tile_size, coords, engine=engine, calib_images=calib_images,
-        device=device, w2_impl=w2_impl,
+        device=device, w2_impl=w2_impl, grouped_gemm=grouped_gemm,
     )
     dev = model_device(model, device)
 

@@ -2,7 +2,8 @@
 nested numpy arrays, -> the port's ``state_dict``.
 
 The inverse of the JAX package's torchvision converter:
-- HWIO conv kernels become OIHW;
+- HWIO conv kernels become OIHW (a grouped 3x3's ``[3, 3, C/g, C']``
+  becomes ``[C', C/g, 3, 3]``, the layout of a grouped ``nn.Conv2d``);
 - a Dense ``[in, out]`` kernel becomes a Linear ``[out, in]`` weight;
 - BatchNorm ``scale/bias`` + stats ``mean/var`` become
   ``weight/bias/running_mean/running_var``;

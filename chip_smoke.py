@@ -2,8 +2,8 @@
 """Chip smoke for the PyTorch/CUDA port (cellsegmentation_tpu_torch).
 
 Drives the port's stage-1, stage-2 and stage-3 paths and its serving
-CLIs' paths on one CUDA card, at the full width of ResNet-50 MILNet on
-299^2 images (stage 2: 32-px tiles, interval 20, 225 tiles per image;
+CLIs' paths on one CUDA card, at the full width of ResNet-50 MILNet (and
+ResNeXt-50/101's grouped trunks and the ensemble CLIs' path) on 299^2 images (stage 2: 32-px tiles, interval 20, 225 tiles per image;
 stage 3's draw: 16-px tiles, interval 5, 3,364 tiles per image;
 test_tile: 32-px tiles, interval 5, 3,025 tiles per image; detection:
 1,200x1,600-px ROIs in 299-px patches), with seeded random weights and
@@ -77,11 +77,31 @@ seeded synthetic LYSTO images:
    share; one patch batch's seg probs card vs CPU; the localization alone
    on planted cells (each found within 2 px, F1 1); ``test_seg``'s point
    evaluation on 16 images;
-11. profile: device time by kernel over one sweep step: 29 launches of the
+11. kernels-resnext: each ResNeXt's (resnext50_32x4d, resnext101_32x8d)
+   q8g engine at full width on one step of 32 images, counted (29 / 5 / 8
+   and 63 / 5 / 25 q8_matmul_px / q8_conv3_tap / q8_matmul), every distinct
+   call against its plain version and timed as in [kernels] (the 101's
+   repeated blocks once, weighted by their count); each grouped 3x3's
+   block-diagonal kernel beside the grouped conv's own bound and cuDNN's
+   bf16 grouped conv;
+12. resnext: ResNeXt-50's sweeps on the [slice] source with auto (q8dg,
+   the dense conv chain: no kernel), per-tile q8 (no kernel), q8g and q8dg
+   with the grouped dense GEMM, counted, timed in turns with their peak
+   memory; each against the port on the CPU and the exact graph under
+   ResNeXt's own limits, each card-vs-CPU gate against planted faults
+   (groups ignored in the expansion, the wrong group's scales and bias,
+   the wrong group's kernel);
+13. ensemble: ``train_ensemble``'s folds (3, 1 epoch, batch 48) on
+   ResNeXt-50 from arrays, no hand-written kernel; each checkpoint
+   reloaded; each fold's count head rewritten to spread its counts over
+   the test images, then ``test_ensemble``'s counts against round(mean) of
+   the folds' own, which is neither a fold's count nor the median; the f32 card-vs-CPU image step gate on ResNeXt-50 with [stage1]'s
+   planted faults, its images/s, MFU and peak memory;
+14. profile: device time by kernel over one sweep step: 29 launches of the
    wgmma kernel under its own name and no other hand-written kernel;
-12. one JSON line with every kernel's launches and times (the q8g path's
-   kernels as entries of their own, ``"path": "q8g"``);
-13. last line: {"ok": true, "device": {...}}.
+15. one JSON line with every kernel's launches and times (the q8g path's
+   and each ResNeXt's kernels as entries of their own, ``"path"``);
+16. last line: {"ok": true, "device": {...}}.
 
 Run from the repository root: ``python3 chip_smoke.py`` (one card). Exits
 non-zero, printing no result, when a phase fails or no card is present.
@@ -146,6 +166,32 @@ SWEEP_REPEATS = 4
 # tests/test_torch_port_serve.py)
 Q8G_LAUNCHES = {"q8_matmul": 8, "q8_matmul_px": 29, "q8_conv3_tap": 5,
                 "q8_conv3_rowtap": 0}
+# [kernels-resnext], [resnext], [ensemble]: the two ResNeXts, 32 groups
+RESNEXTS = ("resnext50_32x4d", "resnext101_32x8d")
+RESNEXT_GROUPS = 32
+# q8g's calls per sweep step on each (the JAX package's q8g counted on the
+# CPU, tests/test_torch_port_resnext.py): ResNeXt-50's are ResNet-50's,
+# ResNeXt-101's layer 3 has 23 blocks
+RESNEXT_Q8G_LAUNCHES = {
+    "resnext50_32x4d": Q8G_LAUNCHES,
+    "resnext101_32x8d": {"q8_matmul": 25, "q8_matmul_px": 63, "q8_conv3_tap": 5,
+                         "q8_conv3_rowtap": 0},
+}
+# q8dg with the grouped dense GEMM: layers 3-4 as ResNet-50's q8dg
+RESNEXT_Q8DG_LAUNCHES = {"q8_matmul": 8, "q8_matmul_px": 20, "q8_conv3_tap": 1}
+# [resnext]'s own log-odds limits (HEAD_SCALE applies): ResNeXt-50's sound
+# engines read card vs CPU max 0.00016-0.00033, mean 0.000002-0.000019, and
+# card vs the exact graph mean 0.000094-0.000235 (three card runs, NVIDIA
+# H100 80GB HBM3, 700 W); its planted faults read card vs CPU max
+# 0.00056-0.00588, mean 0.000191-0.004059. ResNet-50's limits (CARD_CPU_*,
+# Q8DG_EXACT_MEAN) sit 150-1000x above these readings and would pass a
+# fault that keeps the tiles' order.
+RESNEXT_CARD_CPU_MAX, RESNEXT_CARD_CPU_MEAN, RESNEXT_EXACT_MEAN = 1e-3, 1e-4, 1e-3
+# [ensemble]: train_ensemble's folds on synthetic images from arrays, and
+# test_ensemble on a test source; each fold's counts before the head's ReLU
+# are then spread to these means and standard deviations over the images
+ENSEMBLE_IMAGES, ENSEMBLE_K, ENSEMBLE_EPOCHS, ENSEMBLE_TEST_IMAGES = 144, 3, 1, 64
+ENSEMBLE_COUNT_MEANS, ENSEMBLE_COUNT_STDS = (5.0, 7.0, 10.0), (2.0, 3.0, 4.0)
 # [serve]: test_tile's defaults (32/5 grid, threshold 0.95, image batch 128)
 # on SERVE_TILE_IMAGES synthetic images, with these engines
 SERVE_TILE_IMAGES, SERVE_TILE_BATCH = 64, 128
@@ -513,11 +559,12 @@ def _in_turns(fns, args, kw, cold=True):
     return ms
 
 
-def _measure_calls(calls, tag):
+def _measure_calls(calls, tag, repeat=None):
     """Each captured call through its kernel and its plain version (int8 and
     int32 bit-exact, bf16 within 1 ulp), timed cold and warm in CUDA graphs
-    beside its bound and library yardsticks; per-kernel sums, and the
-    (wrapper, cold ms) of each 3x3 call in order."""
+    beside its bound and library yardsticks; per-kernel sums (a call that
+    stands for ``repeat[i]`` identical ones in the step counts that many
+    times), and the (wrapper, cold ms) of each 3x3 call in order."""
     import torch
 
     from cellsegmentation_tpu_torch.kernels import q8_gemm as tq
@@ -529,7 +576,7 @@ def _measure_calls(calls, tag):
                       lib_warm_ms=0.0, bound_ms=0.0, ops_ms=0.0, bytes_ms=0.0,
                       ops=0, lib_ops=0) for fn in tq.KERNELS}
     three = []  # (wrapper, cold ms) of each 3x3, auto form then rowtap form
-    for fn, args, kw in calls:
+    for (fn, args, kw), rep in zip(calls, repeat or [1] * len(calls)):
         got = fn(*args, **kw)
         want = tq.PLAIN[fn](*args, **kw)
         torch.cuda.synchronize()
@@ -553,20 +600,21 @@ def _measure_calls(calls, tag):
         warm_ms = graph_ms(fn, args, kw)
         check(bound <= ms, f"{fn.__name__}: {ms:.5f} ms beats its bound "
               f"{bound:.5f} ms: a timing that cannot be")
-        s["calls"] += 1
+        s["calls"] += rep
         s["err"] = max(s["err"], err)
-        s["ms"] += ms
-        s["warm_ms"] += warm_ms
-        s["wrapper_ms"] += cuda_ms(lambda: fn(*args, **kw), iters=20)
-        s["plain_ms"] += cuda_ms(lambda: tq.PLAIN[fn](*args, **kw), iters=3, warmup=1)
+        s["ms"] += rep * ms
+        s["warm_ms"] += rep * warm_ms
+        s["wrapper_ms"] += rep * cuda_ms(lambda: fn(*args, **kw), iters=20)
+        s["plain_ms"] += rep * cuda_ms(lambda: tq.PLAIN[fn](*args, **kw), iters=3,
+                                       warmup=1)
         lib_ms = graph_ms(torch._int_mm, lib_args, cold=True)
-        s["lib_ms"] += lib_ms
-        s["lib_warm_ms"] += graph_ms(torch._int_mm, lib_args)
-        s["ops"] += ops
-        s["lib_ops"] += lib_ops
-        s["bound_ms"] += bound
-        s["ops_ms"] += t_ops
-        s["bytes_ms"] += t_bytes
+        s["lib_ms"] += rep * lib_ms
+        s["lib_warm_ms"] += rep * graph_ms(torch._int_mm, lib_args)
+        s["ops"] += rep * ops
+        s["lib_ops"] += rep * lib_ops
+        s["bound_ms"] += rep * bound
+        s["ops_ms"] += rep * t_ops
+        s["bytes_ms"] += rep * t_bytes
         shape = f"x{tuple(args[0].shape)} wt{tuple(args[1].shape)}"
         opts = {k: v for k, v in kw.items()
                 if k in ("px", "px_map", "h_in", "stride", "out_kind", "relu")}
@@ -579,14 +627,15 @@ def _measure_calls(calls, tag):
         if fn in (tq.q8_conv3_tap, tq.q8_conv3_rowtap):
             conv, cargs, ckw = _cudnn_conv(fn, args, kw)
             c_ms = graph_ms(conv, cargs, ckw, cold=True)
-            s["cudnn_ms"] += c_ms
-            s["cudnn_warm_ms"] += graph_ms(conv, cargs, ckw)
+            s["cudnn_ms"] += rep * c_ms
+            s["cudnn_warm_ms"] += rep * graph_ms(conv, cargs, ckw)
             tile += f" cuDNN bf16 conv {c_ms:.5f} ms cold;"
             del conv, cargs, ckw
         if fn in (tq.q8_matmul, tq.q8_conv3_tap, tq.q8_conv3_rowtap):
             three.append((fn, ms))
         print(f"[{tag}] {fn.__name__:15s} {shape:28s} {opts} "
-              f"res={kw.get('residual') is not None} max_err={err};{tile} cold "
+              f"res={kw.get('residual') is not None}{f' x{rep}' if rep > 1 else ''} "
+              f"max_err={err};{tile} cold "
               f"{ms:.5f} ms, warm {warm_ms:.5f} ms, bound {bound:.5f} ms "
               f"({'bytes' if t_bytes > t_ops else 'operations'}, "
               f"{100 * bound / ms:.1f}%); torch._int_mm {lib_ms:.5f} ms cold "
@@ -697,6 +746,18 @@ def _logodds(p):
     return np.log(p) - np.log1p(-p)
 
 
+def _gate(lg, lc, max_lim=CARD_CPU_MAX, mean_lim=CARD_CPU_MEAN):
+    """The card-vs-CPU gate on tile log-odds [images, tiles]: (max |diff|,
+    mean |diff|, each image's rank correlation, passes): within both limits
+    and every image's tiles ranked alike (a wrong tile order or flip)."""
+    import numpy as np
+
+    d = np.abs(lg - lc)
+    rank = [float(np.corrcoef(_ranks(lg[i]), _ranks(lc[i]))[0, 1]) for i in range(len(lg))]
+    ok = d.max() <= max_lim and d.mean() <= mean_lim and min(rank) >= MIN_RANK_CORR
+    return float(d.max()), float(d.mean()), rank, ok
+
+
 def phase_slice(args, card, model, step, src):
     """The main path, counted, then its checks."""
     import numpy as np
@@ -750,7 +811,7 @@ def phase_slice(args, card, model, step, src):
     )
     p_cpu = cpu_step(imgs, flip).numpy()
     lo_g, lo_c = _logodds(p_gpu), _logodds(p_cpu)
-    d = np.abs(lo_g - lo_c)
+    mx, mean, rank, ok = _gate(lo_g, lo_c)
     # the noise floor: the exact per-tile bf16 graph (no int8 step) between
     # the same two devices, on the same images
     exact_g = make_tile_infer_step(model, args.tile, _coords(args),
@@ -760,17 +821,13 @@ def phase_slice(args, card, model, step, src):
     lf_g = _logodds(exact_g(imgs, flip).cpu().numpy())
     lf_c = _logodds(exact_c(imgs, flip).numpy())
     d_f = np.abs(lf_g - lf_c)
-    rank = [float(np.corrcoef(_ranks(lo_g[i]), _ranks(lo_c[i]))[0, 1])
-            for i in range(len(imgs))]
-    print(f"[slice] card vs CPU, q8dg log-odds: max {d.max():.5f} mean "
-          f"{d.mean():.6f} (limits {CARD_CPU_MAX} / {CARD_CPU_MEAN}), rank "
+    print(f"[slice] card vs CPU, q8dg log-odds: max {mx:.5f} mean "
+          f"{mean:.6f} (limits {CARD_CPU_MAX} / {CARD_CPU_MEAN}), rank "
           f"corr per image {[round(r, 4) for r in rank]}; exact per-tile graph "
           f"card vs CPU: max {d_f.max():.5f} mean {d_f.mean():.6f}; card "
           f"log-odds {lo_g.min():.4f}..{lo_g.max():.4f} (std {lo_g.std():.5f})")
-    check(d.max() <= CARD_CPU_MAX and d.mean() <= CARD_CPU_MEAN,
-          f"card and CPU q8dg differ by max {d.max():.5f} mean {d.mean():.6f}")
-    check(min(rank) >= MIN_RANK_CORR,
-          f"card and CPU rank the tiles differently (rank corr {min(rank):.3f})")
+    check(ok, f"card and CPU q8dg differ by max {mx:.5f} mean {mean:.6f}, rank corr "
+          f"{min(rank):.3f}")
     # the engine's approximation: q8dg against the exact graph, per device
     e_g, e_c = np.abs(lf_g - lo_g), np.abs(lf_c - lo_c)
     print(f"[slice] q8dg vs the exact per-tile graph, log-odds: card max "
@@ -1124,6 +1181,97 @@ def _step_flops(model, batch):
     return 3 * fc.get_total_flops()
 
 
+def _stage1_rate(model, train, args, card, tag):
+    """The image train step at STAGE1_BATCH on a copy of ``model``: median
+    seconds of TRAIN_RATE_STEPS steps after 2 warm-up, images/s, peak
+    memory, MFU. Returns the images/s."""
+    import numpy as np
+    import torch
+
+    from cellsegmentation_tpu_torch.train.schedules import make_schedule
+    from cellsegmentation_tpu_torch.train.state import create_train_state
+    from cellsegmentation_tpu_torch.train.steps import make_image_train_step
+
+    rate_model = copy.deepcopy(model)
+    state = create_train_state(rate_model, "image", make_schedule(None, STAGE1_LR, 1, 1),
+                               device="cuda")
+    step = make_image_train_step(rate_model, seed=args.seed, device="cuda")
+    batch = _stage1_batch(train, np.arange(STAGE1_BATCH))
+    flops = _step_flops(rate_model, batch)
+    for _ in range(2):
+        state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    secs = []
+    for _ in range(TRAIN_RATE_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        check(math.isfinite(float(metrics["loss"])), f"non-finite {tag} loss")
+        secs.append(time.perf_counter() - t0)
+    med = float(np.median(secs))
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[{tag}] train step at batch {STAGE1_BATCH}, {len(secs)} steps after 2 warm-up "
+          f"in {[round(x, 4) for x in secs]} s: median {med:.4f} s, "
+          f"{STAGE1_BATCH / med:.1f} images/s; peak memory {peak / 2**30:.2f} GiB; "
+          f"{flops / 1e12:.3f} TFLOP a step (3 x the forward's conv and Dense FLOPs): "
+          f"MFU {100 * flops / med / BF16_PEAK_FLOPS:.2f}% of {BF16_PEAK_FLOPS / 1e12:.0f} "
+          f"TFLOP/s bf16, on {card}")
+    return STAGE1_BATCH / med
+
+
+def _stage1_gate(args, train, name, tag):
+    """One f32 image train step of a fresh ``name`` model, card against
+    CPU, and the planted faults this gate must reject."""
+    import numpy as np
+    import torch
+
+    from cellsegmentation_tpu_torch.core.dtypes import F32_POLICY
+    from cellsegmentation_tpu_torch.models import build_model
+
+    pick = np.asarray([0, 58, 116, 174, 1, 59, 117, 175])[:S1_CHECK_IMAGES]
+    check(sorted(set(train.flip_code[pick].tolist())) == [0, 1, 2, 3], "check flips")
+    batch = _stage1_batch(train, pick)
+    cpu_model = build_model(name, policy=F32_POLICY, device="cpu", seed=args.seed)
+    gen = torch.Generator().manual_seed(args.seed)
+    masks = {k: getattr(cpu_model, k).draw_masks(len(pick), gen)
+             for k in ("fc_image_cls", "fc_image_reg")}
+    t0 = time.perf_counter()
+    cpu = stage1_step_reading(cpu_model, batch, masks, "cpu")
+    cpu_s = time.perf_counter() - t0
+
+    def card_reading(b=batch, fault=None):
+        m = build_model(name, policy=F32_POLICY, device="cuda", seed=args.seed)
+        if fault is None:
+            return stage1_step_reading(m, b, masks, "cuda")
+        with planted_stage1_fault(fault, m):
+            return stage1_step_reading(m, b, masks, "cuda")
+
+    limits = (f"limits rel {S1_LOSS_RTOL}, cos {S1_GRAD_MIN_COS}, stat {S1_STAT_RTOL}, "
+              f"update {S1_WEIGHT_RTOL}")
+    # every reading first, then the verdicts, so one run shows them all
+    planted = {"unbiased running variance": (batch, "unbiased running variance"),
+               "dropout scaled by keep": (batch, "dropout scaled by keep"),
+               "flipped images fed unflipped": (dict(batch, flip=np.zeros_like(batch["flip"])),
+                                                None)}
+    gaps = {None: stage1_gap(card_reading(), cpu)}
+    gaps.update({fault: stage1_gap(card_reading(b, planted_as), cpu)
+                 for fault, (b, planted_as) in planted.items()})
+    rel, cos, stat, weight, ok = gaps[None]
+    print(f"[{tag}] one f32 step of {name} on {len(pick)} images (flips "
+          f"{train.flip_code[pick].tolist()}), card vs CPU ({cpu_s:.1f} s on the CPU): "
+          f"loss {cpu[0]:.6f}, rel {rel:.2e}; gradient cosine {cos:.9f}; running "
+          f"statistics gap {stat:.2e}; updated weights' gap over the largest update "
+          f"{weight:.2e} ({limits})")
+    for fault in planted:
+        rel, cos, stat, weight, bad_ok = gaps[fault]
+        print(f"[{tag}] planted fault ({fault}) vs CPU: loss rel {rel:.2e}, cosine "
+              f"{cos:.9f}, statistics {stat:.2e}, update {weight:.2e}: "
+              f"{'passes' if bad_ok else 'rejected'}")
+    check(ok, f"{name}: stage-1 step card vs CPU outside the limits")
+    for fault in planted:
+        check(not gaps[fault][-1], f"the stage-1 gate passes a planted fault: {fault}")
+
 def phase_stage1(args, card, src, slice_gap):
     """Stage 1 on the card: train_stage1, the step's rate, inference_image,
     the card-vs-CPU step gate with its planted faults, the pt1 handoff."""
@@ -1131,7 +1279,6 @@ def phase_stage1(args, card, src, slice_gap):
     import torch
 
     from cellsegmentation_tpu_torch import infer
-    from cellsegmentation_tpu_torch.core.dtypes import F32_POLICY
     from cellsegmentation_tpu_torch.kernels import q8_gemm as tq
     from cellsegmentation_tpu_torch.models import build_model
     from cellsegmentation_tpu_torch.ops.infer_engine import pick_calib_images
@@ -1186,32 +1333,7 @@ def phase_stage1(args, card, src, slice_gap):
               f"entries, step {ck['step']})")
 
     # 2) the train step's rate at batch 48, on a copy of the trained model
-    rate_model = copy.deepcopy(model)
-    state = create_train_state(rate_model, "image", make_schedule(None, STAGE1_LR, 1, 1),
-                               device="cuda")
-    step = make_image_train_step(rate_model, seed=args.seed, device="cuda")
-    batch = _stage1_batch(train, np.arange(STAGE1_BATCH))
-    flops = _step_flops(rate_model, batch)
-    for _ in range(2):
-        state, _ = step(state, batch)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    secs = []
-    for _ in range(TRAIN_RATE_STEPS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, metrics = step(state, batch)
-        check(math.isfinite(float(metrics["loss"])), "non-finite stage-1 loss")
-        secs.append(time.perf_counter() - t0)
-    med = float(np.median(secs))
-    peak = torch.cuda.max_memory_allocated()
-    print(f"[stage1] train step at batch {STAGE1_BATCH}, {len(secs)} steps after 2 warm-up "
-          f"in {[round(x, 4) for x in secs]} s: median {med:.4f} s, "
-          f"{STAGE1_BATCH / med:.1f} images/s; peak memory {peak / 2**30:.2f} GiB; "
-          f"{flops / 1e12:.3f} TFLOP a step (3 x the forward's conv and Dense FLOPs): "
-          f"MFU {100 * flops / med / BF16_PEAK_FLOPS:.2f}% of {BF16_PEAK_FLOPS / 1e12:.0f} "
-          f"TFLOP/s bf16, on {card}")
-    del rate_model, state, step
+    _stage1_rate(model, train, args, card, "stage1")
 
     # 3) inference_image over the [setup] source's 256 samples at batch 128
     infer_fn = make_image_infer_step(model, device="cuda")
@@ -1230,49 +1352,7 @@ def phase_stage1(args, card, src, slice_gap):
           f"counts {int(counts.min())}..{int(counts.max())}, classes {sorted(set(cats.tolist()))}")
 
     # 4) one f32 train step, card against CPU, and the planted faults
-    pick = np.asarray([0, 58, 116, 174, 1, 59, 117, 175])[:S1_CHECK_IMAGES]
-    check(sorted(set(train.flip_code[pick].tolist())) == [0, 1, 2, 3], "check flips")
-    batch = _stage1_batch(train, pick)
-    cpu_model = build_model("resnet50", policy=F32_POLICY, device="cpu", seed=args.seed)
-    gen = torch.Generator().manual_seed(args.seed)
-    masks = {k: getattr(cpu_model, k).draw_masks(len(pick), gen)
-             for k in ("fc_image_cls", "fc_image_reg")}
-    t0 = time.perf_counter()
-    cpu = stage1_step_reading(cpu_model, batch, masks, "cpu")
-    cpu_s = time.perf_counter() - t0
-
-    def card_reading(b=batch, fault=None):
-        m = build_model("resnet50", policy=F32_POLICY, device="cuda", seed=args.seed)
-        if fault is None:
-            return stage1_step_reading(m, b, masks, "cuda")
-        with planted_stage1_fault(fault, m):
-            return stage1_step_reading(m, b, masks, "cuda")
-
-    limits = (f"limits rel {S1_LOSS_RTOL}, cos {S1_GRAD_MIN_COS}, stat {S1_STAT_RTOL}, "
-              f"update {S1_WEIGHT_RTOL}")
-    # every reading first, then the verdicts, so one run shows them all
-    planted = {"unbiased running variance": (batch, "unbiased running variance"),
-               "dropout scaled by keep": (batch, "dropout scaled by keep"),
-               "flipped images fed unflipped": (dict(batch, flip=np.zeros_like(batch["flip"])),
-                                                None)}
-    gaps = {None: stage1_gap(card_reading(), cpu)}
-    gaps.update({name: stage1_gap(card_reading(b, fault), cpu)
-                 for name, (b, fault) in planted.items()})
-    rel, cos, stat, weight, ok = gaps[None]
-    print(f"[stage1] one f32 step of {len(pick)} images (flips "
-          f"{train.flip_code[pick].tolist()}), card vs CPU ({cpu_s:.1f} s on the CPU): "
-          f"loss {cpu[0]:.6f}, rel {rel:.2e}; gradient cosine {cos:.9f}; running "
-          f"statistics gap {stat:.2e}; updated weights' gap over the largest update "
-          f"{weight:.2e} ({limits})")
-    for name in planted:
-        rel, cos, stat, weight, bad_ok = gaps[name]
-        print(f"[stage1] planted fault ({name}) vs CPU: loss rel {rel:.2e}, cosine "
-              f"{cos:.9f}, statistics {stat:.2e}, update {weight:.2e}: "
-              f"{'passes' if bad_ok else 'rejected'}")
-    check(ok, "stage-1 step card vs CPU outside the limits")
-    for name in planted:
-        check(not gaps[name][-1], f"the stage-1 gate passes a planted fault: {name}")
-    del cpu_model
+    _stage1_gate(args, train, "resnet50", "stage1")
 
     # 5) the pt1 handoff: a fresh model from the file, then a q8dg batch
     fresh = build_model("resnet50", device="cuda", seed=args.seed)
@@ -1510,17 +1590,16 @@ def phase_stage3(args, card):
     lce = _logodds(make_tile_infer_step(cpu_model, ts, coords, engine="flax",
                                         device="cpu")(imgs2, flip).numpy())
     del cpu_model
-    d, e_g, e_c = np.abs(lq - lc), np.abs(lq - le), np.abs(lc - lce)
-    rank = [float(np.corrcoef(_ranks(lq[i]), _ranks(lc[i]))[0, 1]) for i in range(2)]
+    mx, mean, rank, ok = _gate(lq, lc, Q8_CARD_CPU_MAX, Q8_CARD_CPU_MEAN)
+    e_g, e_c = np.abs(lq - le), np.abs(lc - lce)
     print(f"[stage3] per-tile q8 log-odds on 2 images x {n_t} tiles (flips 0, 3): card "
-          f"vs CPU max {d.max():.5f} mean {d.mean():.6f} (limits {Q8_CARD_CPU_MAX} / "
+          f"vs CPU max {mx:.5f} mean {mean:.6f} (limits {Q8_CARD_CPU_MAX} / "
           f"{Q8_CARD_CPU_MEAN}), rank corr {[round(r, 4) for r in rank]}; q8 vs the "
           f"exact graph: card max {e_g.max():.5f} mean {e_g.mean():.6f}, CPU max "
           f"{e_c.max():.5f} mean {e_c.mean():.6f} (limit: card mean <= {Q8_EXACT_MEAN} "
           f"and <= CPU mean + {Q8_CARD_CPU_MEAN})")
-    check(d.max() <= Q8_CARD_CPU_MAX and d.mean() <= Q8_CARD_CPU_MEAN,
-          f"card and CPU per-tile q8 differ by max {d.max():.5f} mean {d.mean():.6f}")
-    check(min(rank) >= MIN_RANK_CORR, f"card and CPU rank the tiles differently {rank}")
+    check(ok, f"card and CPU per-tile q8 differ by max {mx:.5f} mean {mean:.6f}, rank "
+          f"corr {rank}")
     check(e_g.mean() <= Q8_EXACT_MEAN and e_g.mean() <= e_c.mean() + Q8_CARD_CPU_MEAN,
           f"per-tile q8 sits {e_g.mean():.5f} from the exact graph on the card "
           f"(CPU: {e_c.mean():.5f})")
@@ -1744,19 +1823,16 @@ def phase_serve(args, card, model, steps, src, ref):
         check(cpu_step.resolved_engine == name, f"CPU {name} -> {cpu_step.resolved_engine}")
         lg = _logodds(steps[name](imgs, flip).cpu().numpy())
         lc = _logodds(cpu_step(imgs, flip).numpy())
-        d = np.abs(lg - lc)
+        mx, mean, rank, ok = _gate(lg, lc)
         e_g, e_c = np.abs(ref["exact_card"] - lg), np.abs(ref["exact_cpu"] - lc)
-        rank = [float(np.corrcoef(_ranks(lg[i]), _ranks(lc[i]))[0, 1])
-                for i in range(len(imgs))]
-        print(f"[serve] {name} log-odds, card vs CPU: max {d.max():.5f} mean "
-              f"{d.mean():.6f} (limits {CARD_CPU_MAX} / {CARD_CPU_MEAN}), rank corr "
+        print(f"[serve] {name} log-odds, card vs CPU: max {mx:.5f} mean "
+              f"{mean:.6f} (limits {CARD_CPU_MAX} / {CARD_CPU_MEAN}), rank corr "
               f"{[round(r, 4) for r in rank]}; vs the exact graph: card max "
               f"{e_g.max():.5f} mean {e_g.mean():.6f}, CPU max {e_c.max():.5f} mean "
               f"{e_c.mean():.6f} (limits: card mean <= {Q8DG_EXACT_MEAN} and <= CPU "
               f"mean + {CARD_CPU_MEAN})")
-        check(d.max() <= CARD_CPU_MAX and d.mean() <= CARD_CPU_MEAN,
-              f"card and CPU {name} differ by max {d.max():.5f} mean {d.mean():.6f}")
-        check(min(rank) >= MIN_RANK_CORR, f"{name}: card and CPU rank differently {rank}")
+        check(ok, f"card and CPU {name} differ by max {mx:.5f} mean {mean:.6f}, rank "
+              f"corr {rank}")
         check(e_g.mean() <= Q8DG_EXACT_MEAN and e_g.mean() <= e_c.mean() + CARD_CPU_MEAN,
               f"{name} sits {e_g.mean():.5f} from the exact graph on the card "
               f"(CPU: {e_c.mean():.5f})")
@@ -1807,6 +1883,530 @@ def phase_serve(args, card, model, steps, src, ref):
         f"{k} mean {np.abs(lo[k] - lo['flax']).mean():.6f}" for k in lo if k != "flax"))
     print(f"[serve] phase {time.perf_counter() - t_phase:.1f} s")
     return launches["q8g"]
+
+
+def _block_of_calls(calls):
+    """The block index of each captured GEMM-land call: a block's calls end
+    with its expand, the one call with a residual."""
+    blocks, bi = [], 0
+    for _, _, kw in calls:
+        blocks.append(bi)
+        bi += kw.get("residual") is not None
+    return blocks
+
+
+def _distinct_calls(calls):
+    """The captured calls once per distinct (wrapper, shapes, options other
+    than the scales): (calls, how many of the step's calls each stands
+    for, each one's index in ``calls``)."""
+    import torch
+
+    keys, firsts, counts = [], [], []
+    for i, (fn, args, kw) in enumerate(calls):
+        key = (fn, tuple(tuple(a.shape) for a in args if torch.is_tensor(a)),
+               tuple(sorted((k, v if not torch.is_tensor(v) else tuple(v.shape))
+                            for k, v in kw.items() if not k.endswith("_scale"))))
+        if key in keys:
+            counts[keys.index(key)] += 1
+        else:
+            keys.append(key)
+            firsts.append(i)
+            counts.append(1)
+    return [calls[i] for i in firsts], counts, firsts
+
+
+def _grouped_work(m, rows, groups):
+    """(int8 ops, bytes moved once) of block ``m``'s grouped 3x3 as the
+    conv itself: 2 x C/g x C' per in-range tap of each output pixel, the
+    input and output read and written once, the grouped weight once."""
+    from cellsegmentation_tpu_torch.kernels import q8_gemm as tq
+
+    table, _, _ = tq.tap_table(m.h_in, m.w_in, m.stride)
+    cg = m.c_mid // groups
+    ops = 2 * rows * cg * m.c_mid * sum(len(t) for t in table)
+    nbytes = (rows * m.h_in * m.w_in * m.c_mid + 9 * cg * m.c_mid + 2 * 4 * m.c_mid
+              + rows * len(table) * m.c_mid)
+    return ops, nbytes
+
+
+def _cudnn_grouped(h1, m, groups):
+    """The yardstick of a grouped 3x3: cuDNN's bf16 grouped conv of the same
+    map (the captured int8 input as bf16, channels-last) by a seeded bf16
+    kernel of the grouped shape; the port never calls it."""
+    import torch
+    import torch.nn.functional as F
+
+    xb = h1.view(h1.shape[0], m.h_in, m.w_in, m.c_mid).to(torch.bfloat16).permute(0, 3, 1, 2)
+    gen = torch.Generator(device=h1.device).manual_seed(0)
+    wb = torch.randn((m.c_mid, m.c_mid // groups, 3, 3), generator=gen, device=h1.device,
+                     dtype=torch.bfloat16).to(memory_format=torch.channels_last)
+    return F.conv2d, (xb, wb), dict(stride=m.stride, padding=1, groups=groups)
+
+
+def phase_kernels_resnext(args, card, src):
+    """Each ResNeXt's q8g GEMM-land at full width on one 32-image step
+    (M = 7,200 tile rows): the step counted, every distinct kernel call
+    against its plain version and timed as [kernels] times them (the
+    101's repeated blocks once, weighted by their count), the rowtap 3x3
+    form's calls likewise, each equal to the auto form's 3x3, and each
+    grouped 3x3's block-diagonal kernel beside the grouped conv's own bound
+    and cuDNN's bf16 grouped conv. Returns per model its counted steps'
+    launches and the kernels' sums."""
+    import numpy as np
+    import torch
+
+    from cellsegmentation_tpu_torch.kernels import q8_gemm as tq
+    from cellsegmentation_tpu_torch.models import build_model
+    from cellsegmentation_tpu_torch.ops.infer_engine import (
+        calib_tiles_from_images,
+        calibrate_trunk,
+        fold_tile_trunk,
+        pick_calib_images,
+    )
+    from cellsegmentation_tpu_torch.train.steps import make_tile_infer_step
+
+    batch = torch.as_tensor(src.images[: args.image_batch]).cuda()
+    flip0 = np.zeros(args.image_batch, np.int32)
+    out = {}
+    for name in RESNEXTS:
+        t0 = time.perf_counter()
+        model = quiet_head(build_model(name, device="cuda", seed=args.seed))
+        calib = calib_tiles_from_images(pick_calib_images(src.images), _coords(args),
+                                        args.tile)
+        scales = calibrate_trunk(fold_tile_trunk(model), calib)
+        steps = {w2: make_tile_infer_step(model, args.tile, _coords(args), engine="q8g",
+                                          device="cuda", scales=scales, w2_impl=w2)
+                 for w2 in ("auto", "rowtap")}
+        build_s = time.perf_counter() - t0
+        metas = steps["auto"].engine.metas
+        tq.reset_launch_counts()
+        calls = _capture_calls(lambda: steps["auto"](batch, flip0))
+        torch.cuda.synchronize()
+        launches = {fn.__name__: fn.launches for fn in tq.KERNELS}
+        check(launches == RESNEXT_Q8G_LAUNCHES[name],
+              f"{name}: q8g step launches {launches}, want {RESNEXT_Q8G_LAUNCHES[name]}")
+        block = _block_of_calls(calls)
+        check(block[-1] == len(metas) - 1, f"{name}: {block[-1] + 1} blocks, {len(metas)} metas")
+        distinct, repeat, firsts = _distinct_calls(calls)
+        # the row-Toeplitz form: one rowtap 3x3 a block, each bit-identical
+        # to the auto form's 3x3 on the same input
+        tq.reset_launch_counts()
+        row_calls = [c for c in _capture_calls(lambda: steps["rowtap"](batch, flip0))
+                     if c[0] is tq.q8_conv3_rowtap]
+        n_row = tq.q8_conv3_rowtap.launches
+        check(n_row == len(row_calls) == len(metas), f"{name}: {n_row} rowtap launches, "
+              f"{len(metas)} blocks")
+        auto3 = [c for c in calls if c[0] is not tq.q8_matmul_px]
+        for bi, ((fr, ar, kr), (fa, aa, ka)) in enumerate(zip(row_calls, auto3)):
+            check(torch.equal(fr(*ar, **kr), fa(*aa, **ka)),
+                  f"{name} block {bi}: the rowtap 3x3 differs from the auto form's")
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        print(f"[kernels-resnext] {name}: engines built in {build_s:.1f} s (fold, calibrate, "
+              f"pack both 3x3 forms); one q8g step of {args.image_batch} images "
+              f"(M = {calls[0][1][0].shape[0]}) launches {launches}; {len(distinct)} distinct "
+              f"calls of {len(calls)}; c_mid by layer "
+              f"{sorted(set((m.c_mid) for m in metas))}; memory peak so far "
+              f"{peak / 2**30:.2f} GiB")
+        stats, three = _measure_calls(distinct, f"kernels-resnext {name}", repeat)
+        for fn in tq.KERNELS:
+            check(stats[fn]["calls"] == launches[fn.__name__],
+                  f"{name}: {fn.__name__} measured {stats[fn]['calls']} calls")
+        d_row, r_row, _ = _distinct_calls(row_calls)
+        stats[tq.q8_conv3_rowtap] = _measure_calls(d_row, f"kernels-resnext {name}",
+                                                   r_row)[0][tq.q8_conv3_rowtap]
+        launches["q8_conv3_rowtap"] = n_row
+        _print_stats(stats, f"kernels-resnext {name}",
+                     f"per image batch (rowtap: the rowtap form's {n_row})")
+
+        # each distinct grouped 3x3 beside the grouped conv's own work
+        keys = ("kernel_ms", "bound_ms", "grouped_bound_ms", "cudnn_ms", "ops", "grouped_ops")
+        grouped = {fn: dict.fromkeys(keys, 0.0) for fn in tq.KERNELS}
+        for (fn, a, kw), rep, i in zip(distinct, repeat, firsts):
+            if fn is tq.q8_matmul_px:
+                continue
+            bi = block[i]
+            m, h1 = metas[bi], a[0]
+            ops, nbytes, _, _ = _work(fn, a, kw)
+            g_ops, g_bytes = _grouped_work(m, h1.shape[0], RESNEXT_GROUPS)
+            bound = max(ops / PEAK_INT8_OPS, nbytes / PEAK_BYTES) * 1e3
+            g_bound = max(g_ops / PEAK_INT8_OPS, g_bytes / PEAK_BYTES) * 1e3
+            k_ms = three.pop(0)[1]  # [kernels-resnext]'s cold time of this call
+            conv, cargs, ckw = _cudnn_grouped(h1, m, RESNEXT_GROUPS)
+            c_ms = graph_ms(conv, cargs, ckw, cold=True)
+            del conv, cargs, ckw
+            for key, v in (("kernel_ms", k_ms), ("bound_ms", bound),
+                           ("grouped_bound_ms", g_bound), ("cudnn_ms", c_ms),
+                           ("ops", ops), ("grouped_ops", g_ops)):
+                grouped[fn][key] += rep * v
+            print(f"[kernels-resnext] {name} block {bi} 3x3 ({m.h_in}x{m.w_in} s{m.stride}, "
+                  f"c_mid {m.c_mid}, x{rep}): block-diagonal {fn.__name__} {k_ms:.5f} ms "
+                  f"cold; bound expanded {bound:.5f} ms ({100 * bound / k_ms:.1f}%), grouped "
+                  f"{g_bound:.5f} ms ({ops / g_ops:.1f}x the operations); cuDNN bf16 "
+                  f"grouped conv {c_ms:.5f} ms cold")
+        tot = {k: sum(g[k] for g in grouped.values()) for k in keys}
+        print(f"[kernels-resnext] {name} grouped 3x3s of one step: block-diagonal kernels "
+              f"{tot['kernel_ms']:.4f} ms cold, bound expanded {tot['bound_ms']:.4f} ms, grouped "
+              f"{tot['grouped_bound_ms']:.4f} ms ({tot['ops'] / tot['grouped_ops']:.1f}x the "
+              f"operations), cuDNN bf16 grouped {tot['cudnn_ms']:.4f} ms cold, on {card}")
+        # the rowtap form's 3x3s do the same grouped convs
+        grouped[tq.q8_conv3_rowtap].update(grouped_bound_ms=tot["grouped_bound_ms"],
+                                           cudnn_ms=tot["cudnn_ms"])
+        out[name] = {"launches": launches, "stats": stats, "grouped": grouped}
+        del model, steps, calls, distinct
+        torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def _groups_ignored():
+    """A planted fault: the block-diagonal expansion copies each group's
+    kernel across every input group instead of its own."""
+    import numpy as np
+
+    from cellsegmentation_tpu_torch.ops import q8_trunk
+
+    orig = q8_trunk._expand_grouped
+    q8_trunk._expand_grouped = lambda k2, g: np.tile(k2, (1, 1, g, 1))
+    try:
+        yield
+    finally:
+        q8_trunk._expand_grouped = orig
+
+
+def _wrong_group_epilogue(engine, groups):
+    """A planted fault in GEMM-land: every block-diagonal 3x3's epilogue
+    reads the previous group's scales and bias (each channel's of c_mid/g
+    channels before; the whole-tile form's per-pixel copies roll alike)."""
+    import torch
+
+    for p, m in zip(engine.qparams, engine.metas):
+        for k in ("s2", "b2"):
+            p[k] = torch.roll(p[k], m.c_mid // groups, dims=0)
+
+
+def _wrong_group_weights(engine, groups):
+    """A planted fault in conv-land: every grouped 3x3 reads its next
+    group's kernel."""
+    import torch
+
+    stem_w, stem_b, stages = engine.tree
+    engine.tree = (stem_w, stem_b, [
+        [tuple(torch.roll(t, t.shape[0] // groups, dims=0) if j == 2 else t
+               for j, t in enumerate(blk)) for blk in stage] for stage in stages])
+
+
+def phase_resnext(args, card, src):
+    """ResNeXt-50 at full width on the [slice] source: every engine's sweep
+    at 299/32/20, counted (auto -> q8dg's dense conv chain and per-tile q8
+    reach no kernel; q8g; q8dg with the grouped dense GEMM), each engine
+    against the port on the CPU and against the exact graph under
+    ResNeXt's own limits, each card-vs-CPU gate against planted faults, the
+    sweeps timed in turns with their peak memory. Returns q8g's counted
+    launches."""
+    import numpy as np
+    import torch
+
+    from cellsegmentation_tpu_torch.kernels import q8_gemm as tq
+    from cellsegmentation_tpu_torch.models import build_model
+    from cellsegmentation_tpu_torch.ops.infer_engine import pick_calib_images
+    from cellsegmentation_tpu_torch.train.steps import make_tile_infer_step
+
+    t_phase = time.perf_counter()
+    name = RESNEXTS[0]
+    n_batches = math.ceil(len(src) / args.image_batch)
+    model = quiet_head(build_model(name, device="cuda", seed=args.seed))
+    coords = _coords(args)
+    t0 = time.perf_counter()
+    auto = make_tile_infer_step(model, args.tile, coords, engine="auto",
+                                calib_images=pick_calib_images(src.images), device="cuda")
+    q8g = make_tile_infer_step(model, args.tile, coords, engine="q8g",
+                               calib_images=pick_calib_images(src.images), device="cuda")
+    build_s = time.perf_counter() - t0
+    scales = q8g.engine.scales
+    # (engine, step keywords, resolved engine, dense backend, launches per batch)
+    cases = {
+        "auto": ("auto", {}, "q8dg", "conv", {}),
+        "q8": ("q8", {}, "q8", None, {}),
+        "q8g": ("q8g", {}, "q8g", None, RESNEXT_Q8G_LAUNCHES[name]),
+        "q8dg-gemm": ("q8dg", {"grouped_gemm": True}, "q8dg", "gemm", RESNEXT_Q8DG_LAUNCHES),
+    }
+
+    def make(key, dev, mdl):
+        engine, kw, _, _, _ = cases[key]
+        return make_tile_infer_step(mdl, args.tile, coords, engine=engine, device=dev,
+                                    scales=scales, **kw)
+
+    steps = {"auto": auto, "q8g": q8g}
+    steps.update({k: make(k, "cuda", model) for k in cases if k not in steps})
+    for key, (_, _, resolved, backend, _) in cases.items():
+        st = steps[key]
+        check(st.resolved_engine == resolved, f"{key} resolves to {st.resolved_engine}")
+        check(backend is None or st.engine.backend == backend,
+              f"{key}: dense backend {getattr(st.engine, 'backend', None)}, want {backend}")
+    print(f"[resnext] {name} at full width (head x {HEAD_SCALE}): auto -> q8dg (the dense "
+          f"conv chain), built with q8g in {build_s:.1f} s; every engine on q8g's scales")
+
+    probs, launches, peaks = {}, {}, {}
+    for key in cases:
+        _warm_flips(steps[key], src, args.image_batch)
+        tq.reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        probs[key], _ = _sweep(src, steps[key], args)
+        peaks[key] = torch.cuda.max_memory_allocated()
+        launches[key] = {fn.__name__: fn.launches for fn in tq.KERNELS}
+        want = {fn.__name__: cases[key][4].get(fn.__name__, 0) * n_batches for fn in tq.KERNELS}
+        check(launches[key] == want, f"{key}: launches {launches[key]}, want {want}")
+        check(probs[key].shape == (len(src), 225) and bool(np.isfinite(probs[key]).all()),
+              f"{key} probs {probs[key].shape}")
+        print(f"[resnext] {key} sweep launches over {n_batches} image batches: "
+              f"{launches[key]}; peak memory {peaks[key] / 2**30:.2f} GiB")
+    passes = {k: [] for k in cases}
+    for i in range(SWEEP_REPEATS):
+        for key in (list(passes) if i % 2 == 0 else list(reversed(passes))):
+            passes[key].append(_sweep(src, steps[key], args)[1])
+    ips = {k: len(src) / float(np.median(v)) for k, v in passes.items()}
+    print(f"[resnext] sweeps at 299/32/20, image batch {args.image_batch}, in turns, s: "
+          f"{ {k: [round(x, 4) for x in v] for k, v in passes.items()} }; median images/s: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in ips.items()) + f" on {card}")
+
+    # each engine on the card against the port on the CPU and the exact graph
+    imgs, flip = src.images[:2], np.asarray([0, 3], np.int32)
+    cpu_model = quiet_head(build_model(name, device="cpu", seed=args.seed))
+    exact_g = _logodds(make_tile_infer_step(model, args.tile, coords, engine="flax",
+                                            device="cuda")(imgs, flip).cpu().numpy())
+    exact_c = _logodds(make_tile_infer_step(cpu_model, args.tile, coords, engine="flax",
+                                            device="cpu")(imgs, flip).numpy())
+    cpu_lo = {}
+    for key in cases:
+        cpu_step = make(key, "cpu", cpu_model)
+        check(cpu_step.resolved_engine == cases[key][2], f"CPU {key} -> {cpu_step.resolved_engine}")
+        lg = _logodds(steps[key](imgs, flip).cpu().numpy())
+        cpu_lo[key] = lc = _logodds(cpu_step(imgs, flip).numpy())
+        mx, mean, rank, ok = _gate(lg, lc, RESNEXT_CARD_CPU_MAX, RESNEXT_CARD_CPU_MEAN)
+        e_g, e_c = np.abs(exact_g - lg), np.abs(exact_c - lc)
+        print(f"[resnext] {key} log-odds, card vs CPU: max {mx:.5f} mean {mean:.6f} "
+              f"(limits {RESNEXT_CARD_CPU_MAX} / {RESNEXT_CARD_CPU_MEAN}), rank corr "
+              f"{min(rank):.4f}; vs the exact graph: card max {e_g.max():.5f} mean "
+              f"{e_g.mean():.6f}, CPU max {e_c.max():.5f} mean {e_c.mean():.6f} (limits: "
+              f"card mean <= {RESNEXT_EXACT_MEAN} and <= CPU mean + {RESNEXT_CARD_CPU_MEAN})")
+        check(ok, f"{key}: card and CPU differ by max {mx:.5f} mean {mean:.6f} "
+              f"rank {min(rank):.4f}")
+        check(e_g.mean() <= RESNEXT_EXACT_MEAN
+              and e_g.mean() <= e_c.mean() + RESNEXT_CARD_CPU_MEAN,
+              f"{key} sits {e_g.mean():.5f} from the exact graph on the card "
+              f"(CPU: {e_c.mean():.5f})")
+    del cpu_model
+
+    # every gate against the faults planted in its engine on the card
+    def planted(key):
+        if key in ("q8g", "q8dg-gemm"):
+            with _groups_ignored():
+                yield make(key, "cuda", model), "groups ignored in the expansion"
+            st = make(key, "cuda", model)
+            _wrong_group_epilogue(st.engine, RESNEXT_GROUPS)
+            yield st, "the wrong group's scales and bias"
+        else:
+            st = make(key, "cuda", model)
+            _wrong_group_weights(st.engine, RESNEXT_GROUPS)
+            yield st, "the wrong group's 3x3 kernel"
+
+    for key in cases:
+        for st, fault in planted(key):
+            lg = _logodds(st(imgs, flip).cpu().numpy())
+            mx, mean, rank, ok = _gate(lg, cpu_lo[key], RESNEXT_CARD_CPU_MAX,
+                                       RESNEXT_CARD_CPU_MEAN)
+            print(f"[resnext] planted fault in {key} ({fault}) vs CPU: max {mx:.5f} mean "
+                  f"{mean:.6f} rank corr {min(rank):.4f}; vs the exact graph mean "
+                  f"{np.abs(exact_g - lg).mean():.6f}: {'passes' if ok else 'rejected'}")
+            check(not ok, f"the {key} gate passes a planted fault: {fault}")
+            del st
+    print(f"[resnext] phase {time.perf_counter() - t_phase:.1f} s")
+    return launches["q8g"]
+
+
+def _spread_count_head(model, images, mean, std, seed, device="cuda"):
+    """Rewrite ``model``'s count head so that its counts before the final
+    ReLU on ``images`` have this mean and standard deviation and differ
+    image by image: BN1 standardizes the images' own pooled features by
+    their spread over these images, a seeded Dense maps them to 64 units,
+    BN2 standardizes those, and the last Dense maps a seeded combination of
+    them onto the mean and spread. Each image's count is read from the
+    trained encoder's features of that image."""
+    import numpy as np
+    import torch
+
+    from cellsegmentation_tpu_torch.train.steps import make_image_infer_step
+
+    head = model.fc_image_reg
+    pooled = []
+    hook = head.register_forward_hook(lambda mod, inp, out: pooled.append(inp[0].float()))
+    try:
+        make_image_infer_step(model, device=device)(images, np.zeros(len(images), np.int32))
+    finally:
+        hook.remove()
+    x = torch.cat(pooled)
+    gen = torch.Generator(device=x.device).manual_seed(seed)
+
+    def standardize(bn, v):  # BN1d on v's own statistics, unit affine
+        bn.running_mean.copy_(v.mean(0))
+        bn.running_var.copy_(v.var(0) + (1e-2 * v.abs().mean()) ** 2)
+        bn.weight.fill_(1.0)
+        bn.bias.zero_()
+        return (v - bn.running_mean) / torch.sqrt(bn.running_var + bn.eps)
+
+    with torch.no_grad():
+        z = torch.relu(standardize(head[1], x))
+        w4 = torch.randn(head[4].weight.shape, generator=gen, device=x.device)
+        head[4].weight.copy_(w4 / math.sqrt(x.shape[1]))
+        head[4].bias.zero_()
+        z = standardize(head[5], z @ head[4].weight.float().T)
+        w7 = torch.randn((z.shape[1],), generator=gen, device=x.device)
+        t = z @ w7
+        scale = std / float(t.std())
+        head[7].weight.copy_((w7 * scale)[None])
+        head[7].bias.fill_(mean - float(t.mean()) * scale)
+
+
+def phase_ensemble(args, card):
+    """train_ensemble's folds on ResNeXt-50 from arrays (k folds, 1 epoch,
+    the CLI's batch 48), counted: no hand-written kernel; each fold's
+    checkpoint reloaded; each fold's count head spread over the test
+    images, then test_ensemble's counts against round(mean) of the folds'
+    own inference_image; the f32 card-vs-CPU image step gate with
+    its planted faults, and the step's images/s, MFU and peak memory."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from cellsegmentation_tpu_torch import infer
+    from cellsegmentation_tpu_torch.cli import test_ensemble, train_ensemble
+    from cellsegmentation_tpu_torch.data import (
+        EnsembleSource,
+        LystoTestSource,
+        make_synthetic_arrays,
+    )
+    from cellsegmentation_tpu_torch.kernels import q8_gemm as tq
+    from cellsegmentation_tpu_torch.models import build_model
+    from cellsegmentation_tpu_torch.train import checkpoint as ckpt_mod
+    from cellsegmentation_tpu_torch.train.steps import make_image_infer_step
+    from cellsegmentation_tpu_torch.utils.logging import RunLogger
+
+    t_phase = time.perf_counter()
+    name = RESNEXTS[0]
+    a = make_synthetic_arrays(ENSEMBLE_IMAGES, args.hw, 30, seed=args.seed + 17)
+    ens = EnsembleSource.from_arrays(a["images"], a["organs"], a["counts"], k=ENSEMBLE_K)
+    t = make_synthetic_arrays(ENSEMBLE_TEST_IMAGES, args.hw, 30, seed=args.seed + 19)
+    test_src = LystoTestSource.from_arrays(t["images"], t["organs"])
+    trained = []
+    orig = train_ensemble.train_stage1
+
+    def keep_model(model, *a, **kw):  # the fold's model, for the checks below
+        trained.append(model)
+        return orig(model, *a, **kw)
+
+    with tempfile.TemporaryDirectory() as out:
+        eargs = train_ensemble.build_parser().parse_args(
+            ["-E", name, "-e", str(ENSEMBLE_EPOCHS), "-k", str(ENSEMBLE_K), "-o", out,
+             "--seed", str(args.seed)])
+        check(eargs.batch_size == STAGE1_BATCH, f"the CLI's batch {eargs.batch_size}")
+        train_ensemble.train_stage1 = keep_model
+        tq.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            paths = train_ensemble.train_folds(
+                ens, eargs, RunLogger(out, run_name="ensemble", tensorboard=False), "cuda")
+        finally:
+            train_ensemble.train_stage1 = orig
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in tq.KERNELS}
+        check(not any(launches.values()), f"train_ensemble launched {launches}")
+        names = [os.path.basename(p) for p in paths]
+        check(names == [f"reg_pt1_{i}_{ENSEMBLE_EPOCHS}epochs.ckpt" for i in range(ENSEMBLE_K)],
+              f"checkpoints {names}")
+        sizes = [tuple(len(v) for v in ens.fold(i)) for i in range(ENSEMBLE_K)]
+        print(f"[ensemble] train_ensemble on {name}: {ENSEMBLE_K} folds (train, val) "
+              f"{sizes}, {ENSEMBLE_EPOCHS} epoch each at batch {eargs.batch_size}, in "
+              f"{wall:.1f} s on {card}; wrote {names}; hand-written kernel launches "
+              f"{launches}")
+        counts = []
+        for path, model in zip(paths, trained):
+            ck = ckpt_mod.load_checkpoint(path)
+            check((ck["mode"], ck["epoch"], ck["encoder"]) == ("image", ENSEMBLE_EPOCHS, name),
+                  f"{path}: {ck['mode']} {ck['epoch']} {ck['encoder']}")
+            fresh = build_model(name, device="cuda", seed=args.seed + 99)
+            ckpt_mod.restore_into(fresh, ck, ckpt_mod.STAGE_SAVE_PARTITIONS["image"])
+            sd_t, sd_f = model.state_dict(), fresh.state_dict()
+            parts = ckpt_mod.STAGE_SAVE_PARTITIONS["image"]
+            check(all(torch.equal(sd_t[k], sd_f[k]) for k in sd_t
+                      if k.split(".", 1)[0] in parts),
+                  f"{path}: the reloaded model's state differs from the trained one")
+            c_t = infer.inference_image(test_src, make_image_infer_step(model, device="cuda"),
+                                        batch_size=128)[1]
+            c_f = infer.inference_image(test_src, make_image_infer_step(fresh, device="cuda"),
+                                        batch_size=128)[1]
+            check(np.array_equal(c_t, c_f), f"{path}: counts differ after the reload")
+            counts.append(c_t)
+            del fresh
+        targs = test_ensemble.build_parser().parse_args(["-m", out, "-e", str(ENSEMBLE_EPOCHS)])
+        check(test_ensemble.ensemble_paths(out, ENSEMBLE_EPOCHS) == sorted(paths),
+              "test_ensemble finds other checkpoints")
+        t0 = time.perf_counter()
+        final = test_ensemble.ensemble_counts(sorted(paths), test_src, targs, "cuda")
+        e_s = time.perf_counter() - t0
+        want = np.asarray(counts).mean(axis=0).round().astype(int)
+        check(np.array_equal(final, want), f"ensemble counts {final[:8]} vs {want[:8]}")
+        print(f"[ensemble] each checkpoint reloaded (state equal, counts bit-equal); "
+              f"test_ensemble over {len(test_src)} images x {ENSEMBLE_K} models in "
+              f"{e_s:.2f} s: round(mean) of the folds' own counts, "
+              f"{final.min()}..{final.max()}")
+        # one epoch leaves every count at 0 (the head's ReLU) and the raw
+        # counts one value over the images: each fold's count head is
+        # rewritten (in the trained model and its file alike) to spread its
+        # counts over the test images, each fold about its own mean
+        for i, (path, model) in enumerate(zip(paths, trained)):
+            _spread_count_head(model, test_src.images, ENSEMBLE_COUNT_MEANS[i],
+                               ENSEMBLE_COUNT_STDS[i], args.seed + i)
+            ck = ckpt_mod.load_checkpoint(path)
+            for k, v in model.state_dict().items():
+                if k.startswith("fc_image_reg."):
+                    ck["state_dict"][k] = v.cpu()
+            torch.save(ck, path)
+            counts[i] = infer.inference_image(
+                test_src, make_image_infer_step(model, device="cuda"), batch_size=128)[1]
+        final = test_ensemble.ensemble_counts(sorted(paths), test_src, targs, "cuda")
+    counts = np.asarray(counts)
+    want = counts.mean(axis=0).round().astype(int)
+    check(np.array_equal(final, want), f"ensemble counts {final[:8]} vs {want[:8]}")
+    n_values = [len(set(c.tolist())) for c in counts]
+    check(min(n_values) >= 5, f"the folds' counts take {n_values} values over the images")
+    # round(mean) is neither one fold's counts nor the median: a wrong
+    # averaging (one checkpoint, the median, a sum) differs on some image
+    off_fold = [int((final != c).sum()) for c in counts]
+    off_median = int((final != np.median(counts, axis=0)).sum())
+    check(min(off_fold) > 0 and off_median > 0,
+          f"round(mean) equals a fold's counts or the median: images apart from each "
+          f"fold {off_fold}, from the median {off_median}")
+    print(f"[ensemble] with each fold's count head spread (means {ENSEMBLE_COUNT_MEANS}, "
+          f"stds {ENSEMBLE_COUNT_STDS}): the folds' counts take {n_values} values over "
+          f"{len(test_src)} images; test_ensemble's counts {final.min()}..{final.max()} = "
+          f"round(mean) of the folds' own, apart from each fold's on {off_fold} images "
+          f"and from the median on {off_median}")
+    del trained
+    torch.cuda.empty_cache()
+
+    train, _ = _stage1_sources(args)
+    _stage1_gate(args, train, name, "ensemble")
+    step_model = build_model(name, device="cuda", seed=args.seed)
+    tq.reset_launch_counts()
+    _stage1_rate(step_model, train, args, card, "ensemble")
+    launches = {fn.__name__: fn.launches for fn in tq.KERNELS}
+    check(not any(launches.values()), f"the {name} image step launched {launches}")
+    print(f"[ensemble] phase {time.perf_counter() - t_phase:.1f} s")
 
 
 def _block_cv2_sklearn() -> None:
@@ -2124,6 +2724,22 @@ def _coords(args):
     return tile_grid(args.hw, args.hw, args.tile, args.interval)
 
 
+def _kernel_row(fn, s, launches, path=None, **extra):
+    """One kernel's entry of the JSON line from its measured ``s``
+    (``_measure_calls``) and its launches on the path it names."""
+    row = {"name": fn.__name__}
+    if path is not None:
+        row["path"] = path
+    row.update({
+        "route": "cuda", "source": SOURCES[fn.__name__], "replaces": REPLACES[fn.__name__],
+        "launches": launches, "max_abs_err": s["err"], "ms": s["ms"],
+        "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
+        "bound_by": "bytes" if s["bytes_ms"] > s["ops_ms"] else "operations",
+        "library_ms": s["lib_ms"], "warm_ms": s["warm_ms"], **extra,
+    })
+    return row
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--images", type=int, default=64,
@@ -2228,6 +2844,19 @@ def main(argv=None) -> int:
         phase = "detect"
         phase_detect(args, card, pt3)
 
+        phase = "kernels-resnext"
+        rx = phase_kernels_resnext(args, card, src)
+
+        phase = "resnext"
+        # ResNeXt-50's q8g launches from the counted sweep (rowtap: the
+        # rowtap form's counted step in [kernels-resnext])
+        rx[RESNEXTS[0]]["launches"].update(phase_resnext(args, card, src),
+                                           q8_conv3_rowtap=rx[RESNEXTS[0]]["launches"][
+                                               "q8_conv3_rowtap"])
+
+        phase = "ensemble"
+        phase_ensemble(args, card)
+
         phase = "profile"
         phase_profile(step, src.images[: args.image_batch])
     except Exception as exc:  # report the phase, exit non-zero, no result
@@ -2241,36 +2870,33 @@ def main(argv=None) -> int:
     # launches on the path that runs each kernel: the counted auto sweep,
     # and the counted rowtap sweep for the row-Toeplitz kernel
     launches["q8_conv3_rowtap"] = row_launches["q8_conv3_rowtap"]
-    kernels = []
-    for fn in tq.KERNELS:
-        s = stats[fn]
-        kernels.append({
-            "name": fn.__name__, "route": "cuda", "source": SOURCES[fn.__name__],
-            "replaces": REPLACES[fn.__name__],
-            "launches": launches[fn.__name__],
-            "max_abs_err": s["err"], "ms": s["ms"], "plain_ms": s["plain_ms"],
-            "bound_ms": s["bound_ms"],
-            "bound_by": "bytes" if s["bytes_ms"] > s["ops_ms"] else "operations",
-            "library_ms": s["lib_ms"], "warm_ms": s["warm_ms"],
-            "cudnn_ms": (s["cudnn_ms"] if fn in (tq.q8_conv3_tap, tq.q8_conv3_rowtap)
-                         else None),
-        })
+    threes = (tq.q8_conv3_tap, tq.q8_conv3_rowtap)
+    kernels = [_kernel_row(fn, stats[fn], launches[fn.__name__],
+                           cudnn_ms=stats[fn]["cudnn_ms"] if fn in threes else None)
+               for fn in tq.KERNELS]
     # the q8g path: its counted sweep in [serve], every call of its step in
     # [kernels-q8g]
-    for fn in tq.KERNELS:
-        s = stats_q8g[fn]
-        if not launches_q8g[fn.__name__]:
-            continue
-        kernels.append({
-            "name": fn.__name__, "path": "q8g", "route": "cuda",
-            "source": SOURCES[fn.__name__], "replaces": REPLACES[fn.__name__],
-            "launches": launches_q8g[fn.__name__],
-            "max_abs_err": s["err"], "ms": s["ms"], "plain_ms": s["plain_ms"],
-            "bound_ms": s["bound_ms"],
-            "bound_by": "bytes" if s["bytes_ms"] > s["ops_ms"] else "operations",
-            "library_ms": s["lib_ms"], "warm_ms": s["warm_ms"],
-            "cudnn_ms": s["cudnn_ms"] if fn is tq.q8_conv3_tap else None,
-        })
+    kernels += [_kernel_row(fn, stats_q8g[fn], launches_q8g[fn.__name__], path="q8g",
+                            cudnn_ms=stats_q8g[fn]["cudnn_ms"] if fn is tq.q8_conv3_tap
+                            else None)
+                for fn in tq.KERNELS if launches_q8g[fn.__name__]]
+    # each ResNeXt's q8g: ResNeXt-50's counted sweep in [resnext], the 101's
+    # counted step in [kernels-resnext] (rowtap: the rowtap form's counted
+    # step there); the 3x3s' grouped bound and cuDNN's bf16 grouped conv
+    # beside the expanded product's
+    for name in RESNEXTS:
+        for fn in tq.KERNELS:
+            s, g = rx[name]["stats"][fn], rx[name]["grouped"][fn]
+            if not rx[name]["launches"][fn.__name__]:
+                continue
+            three = fn is not tq.q8_matmul_px
+            row = fn is tq.q8_conv3_rowtap
+            kernels.append(_kernel_row(
+                fn, s, rx[name]["launches"][fn.__name__],
+                path=f"{name} q8g{' rowtap' if row else ''}",
+                cudnn_ms=s["cudnn_ms"] if fn is tq.q8_conv3_tap else None,
+                grouped_bound_ms=g["grouped_bound_ms"] if three else None,
+                cudnn_grouped_ms=g["cudnn_ms"] if three else None))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

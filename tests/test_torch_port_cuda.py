@@ -196,6 +196,51 @@ def test_wgmma_core_conv_edges(m):
     assert [f.launches for f in tq.KERNELS] == [0, 0, n_tap, len(cases) - n_tap]
 
 
+# ResNeXt's calls the ResNet-50 trunk never makes (grouped 3x3s expanded
+# block-diagonally, so c_mid is 2-4x ResNet-50's): ResNeXt-101's whole-tile
+# Toeplitz 3x3s at K = 8,192 (layer4 block0) and N = 4,096 (layer3, 2x2),
+# q8g's 64-group layer2 reduce at 256 -> 512, and its taps at c_mid 512
+# (layer2, 8x8 s2 and 4x4) and 1,024 (layer3 block0, 4x4 s2)
+RESNEXT_MM = [(8192, 4096), (8192, 2048), (4096, 4096)]  # (K, N)
+RESNEXT_TAPS = [(8, 2, 512), (4, 1, 512), (4, 2, 1024)]  # (h = w, stride, C)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", (129, 7200))
+def test_wgmma_core_resnext_shapes(m):
+    """The four kernels' wrappers at ResNeXt's widest call shapes against
+    their plain versions (int8 exact, bf16 within 1 ulp); each launch
+    counted, none refused."""
+    dev = _card()
+    rng = np.random.default_rng(300 + m)
+    epi = {k: SCALES[k] for k in ("in_scale", "out_scale")}
+
+    def epi_dev(n):
+        return tuple(a.to(dev) for a in _epi_args(rng, n))
+
+    cases = []
+    for k, n in RESNEXT_MM:
+        ops = (_ints(rng, (m, k)).to(dev), _ints(rng, (n, k)).to(dev), *epi_dev(n))
+        cases += [(tq.q8_matmul, ops, dict(out_kind=kind, **epi)) for kind in ("int8", "bf16")]
+    x = _ints(rng, (m, 64 * 256)).to(dev)
+    cases.append((tq.q8_matmul_px, (x, _ints(rng, (512, 256)).to(dev), *epi_dev(512)),
+                  dict(px=64, c_in=256, **epi)))
+    for h, stride, c in RESNEXT_TAPS:
+        ops = (_ints(rng, (m, h * h * c)).to(dev), _ints(rng, (c, 9 * c)).to(dev),
+               *epi_dev(c))
+        cases.append((tq.q8_conv3_tap, ops, dict(h_in=h, w_in=h, stride=stride, c_in=c,
+                                                **epi)))
+    tq.reset_launch_counts()
+    for fn, args, kw in cases:
+        got = fn(*args, **kw)
+        want = tq.PLAIN[fn](*args, **kw)
+        torch.cuda.synchronize()
+        _assert_plain(got, want, f"{fn.__name__} m={m} wt{tuple(args[1].shape)} {kw}")
+        del got, want
+    assert [f.launches for f in tq.KERNELS] == [2 * len(RESNEXT_MM), 1,
+                                                len(RESNEXT_TAPS), 0]
+
+
 @pytest.mark.cuda
 def test_wgmma_core_refuses_what_it_does_not_take():
     """A call outside the core's tile rules raises before any launch."""

@@ -250,3 +250,30 @@ def test_serving_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     for main in (test_seg.main, test_tile.main):
         with pytest.raises(RuntimeError, match="CST_PLATFORM=cpu"):
             main(["-m", str(tmp_path / "none.ckpt"), "--data_path", str(tmp_path)])
+
+
+def test_ensemble_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    """The ensemble CLIs want the card unless CST_PLATFORM=cpu, and their
+    callables on built sources raise on a device that is not there."""
+    from cellsegmentation_tpu_torch.cli import test_ensemble, train_ensemble
+    from cellsegmentation_tpu_torch.data import EnsembleSource, LystoTestSource
+    from cellsegmentation_tpu_torch.train.checkpoint import save_checkpoint
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.delenv("CST_PLATFORM", raising=False)
+    for main, argv in ((train_ensemble.main, []), (test_ensemble.main, ["-m", str(tmp_path)])):
+        with pytest.raises(RuntimeError, match="CST_PLATFORM=cpu"):
+            main(argv + ["--data_path", str(tmp_path / "no_data")])
+    imgs = np.random.default_rng(0).integers(0, 256, (4, 32, 32, 3), np.uint8)
+    organs, counts = ["colon_0"] * 4, np.asarray([1, 0, 2, 3])
+    args = train_ensemble.build_parser().parse_args(["-E", "resnet18", "-e", "1", "-k", "2"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_ensemble.train_folds(EnsembleSource.from_arrays(imgs, organs, counts, k=2),
+                                   args, _quiet_logger(tmp_path), "cuda")
+    ck = save_checkpoint(str(tmp_path), "image", 1, "resnet18", _tiny_model().state_dict(),
+                         prefix="reg_pt1_0")
+    targs = test_ensemble.build_parser().parse_args(["-m", str(tmp_path), "-e", "1"])
+    assert test_ensemble.ensemble_paths(str(tmp_path), 1) == [ck]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        test_ensemble.ensemble_counts([ck], LystoTestSource.from_arrays(imgs, organs),
+                                      targs, "cuda")
