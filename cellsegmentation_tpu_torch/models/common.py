@@ -1,5 +1,6 @@
 """Shared model building blocks: the conv+BN(+ReLU) unit, the tile head,
-the image-count heads and the U-Net-style seg decoder.
+the image-count heads (the MLP heads of the ResNets, the single-Dense heads
+of EfficientNet) and the U-Net-style seg decoder.
 
 Activations are NHWC at module boundaries (the JAX package's layout); a
 module permutes to NCHW views internally, which for an NHWC-contiguous
@@ -156,6 +157,56 @@ class ImageHeadMLP(nn.Sequential):
         return F.relu(x) if self.relu_out else x
 
 
+class ImageHeadSimple(nn.Sequential):
+    """Dropout(.3) -> Dense(out) [-> ReLU] on pooled features [N, C] -> f32
+    [N, out]: EfficientNet's image heads.
+
+    The layers sit at ``Sequential(Flatten, Dropout, Linear[, ReLU])``
+    indices, ImageHeadMLP's convention with the Flatten at 0, so the
+    state-dict keys are ``.2.weight`` / ``.2.bias``. Dropout runs in the
+    features' dtype as ``where(keep_mask, x / keep, 0)`` (the keep rate
+    rounded to that dtype, as flax's weak-typed scalar is), the Dense in
+    the compute dtype. In train mode the keep mask is ``dropout_masks``
+    when given (a 1-tuple, [N, C] bool), else drawn by ``draw_masks`` from
+    ``generator``."""
+
+    RATES = (0.3,)
+
+    def __init__(self, in_features: int, out_features: int,
+                 relu_out: bool = False, policy: Policy = DEFAULT_POLICY):
+        layers = [nn.Flatten(), nn.Dropout(self.RATES[0]),
+                  nn.Linear(in_features, out_features)]
+        if relu_out:
+            layers.append(nn.ReLU())
+        super().__init__(*layers)
+        self.relu_out = relu_out
+        self.policy = policy
+
+    def draw_masks(self, n: int, generator=None, device=None):
+        """The dropout's keep mask for a batch of ``n``, as a 1-tuple, drawn
+        from ``generator`` (or the global generator of ``device``)."""
+        dev = device or self[2].weight.device
+        return (torch.rand((n, self[2].in_features), generator=generator,
+                           device=dev) >= self.RATES[0],)
+
+    def forward(self, pooled: torch.Tensor, train: bool = False,
+                dropout_masks=None, generator=None) -> torch.Tensor:
+        x = pooled
+        if train:
+            (mask,) = dropout_masks or self.draw_masks(x.shape[0], generator,
+                                                       x.device)
+            keep = torch.tensor(1 - self.RATES[0], dtype=x.dtype, device=x.device)
+            x = torch.where(mask, x / keep, 0.0)
+        x = _dense(x, self[2], self.policy.compute_dtype).float()
+        return F.relu(x) if self.relu_out else x
+
+
+class DenseConv2d(nn.Conv2d):
+    """A biased conv initialized as a Dense layer (``init_weights``): flax's
+    default conv init, where the encoder's other convs take the
+    kaiming one (the squeeze-excite 1x1s)."""
+
+
 class UpConv(ConvBNAct):
     """A decoder ConvBNAct. The reference's ``upconv<k>`` is
     ``Sequential(Conv2d(bias=True), BN2d, ReLU)``; this conv has no bias
@@ -226,9 +277,14 @@ class SegDecoder(nn.Module):
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     """Seeded initialization: convs kaiming-normal (fan_out, ReLU gain) with
     zero bias, BatchNorm identity (scale 1, bias 0, running stats 0/1),
-    Linear weights normal with std 1/sqrt(fan_in) and zero bias."""
+    Linear weights and ``DenseConv2d`` kernels normal with std
+    1/sqrt(fan_in) and zero bias."""
     for m in module.modules():
-        if isinstance(m, nn.Conv2d):
+        if isinstance(m, DenseConv2d):
+            fan_in = m.weight[0].numel()
+            nn.init.normal_(m.weight, 0.0, fan_in ** -0.5, generator=generator)
+            nn.init.zeros_(m.bias)
+        elif isinstance(m, nn.Conv2d):
             nn.init.kaiming_normal_(m.weight, mode="fan_out",
                                     nonlinearity="relu", generator=generator)
             if m.bias is not None:

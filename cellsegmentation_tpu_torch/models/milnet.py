@@ -4,9 +4,12 @@ The encoder, the tile head (``mode="tile"``), the two image-count heads
 (``mode="image"``) and the seg decoder (``mode="segment"``). Parameter
 names mirror the reference's torch model (``encoder.*`` holds
 torchvision's names, ``fc_tile.1.*`` the Linear, ``fc_image_*.1/.4/.5/.7``
-the image MLPs, ``seg_decoder.*`` the reference's top-level ``upconv1..8``
-and ``seg_out_conv``), so the JAX weight bridge (utils/jax_weights.py) and
-reference checkpoints map onto them by name.
+the image MLPs or ``fc_image_*.2`` EfficientNet's single-Dense heads,
+``seg_decoder.*`` the reference's top-level ``upconv1..8`` and
+``seg_out_conv``), so the JAX weight bridge (utils/jax_weights.py) and
+reference checkpoints map onto them by name. EfficientNet has no seg
+decoder (the reference's segment mode is a dead ``pass`` there): its
+segment mode raises, as the JAX package's does.
 
 BatchNorm per stage, as in the JAX package: stage 1 runs everything in
 train mode (``train=True``: batch statistics, running ones updated);
@@ -24,7 +27,9 @@ from torch import nn
 
 from cellsegmentation_tpu_torch.core.dtypes import DEFAULT_POLICY, Policy
 from cellsegmentation_tpu_torch.models.common import (
+    BN_MOMENTUM,
     ImageHeadMLP,
+    ImageHeadSimple,
     SegDecoder,
     TileHead,
     init_weights,
@@ -54,33 +59,53 @@ class MILNet(nn.Module):
     - ``mode="image"``   -> (f32 class logits [N, 7], f32 counts [N, 1]);
     - ``mode="segment"`` -> f32 seg logits [N, H, W, 2].
 
-    The decoder's widths scale by the encoder block's expansion (4 for
-    Bottleneck, 1 for BasicBlock), as the JAX package's registry sets its
-    ``decoder_expansion``.
+    ``image_head_style`` picks the image heads: ``"mlp"`` (the ResNets')
+    or ``"simple"`` (EfficientNet's). With ``supports_segment`` the model
+    has a seg decoder, whose widths scale by the encoder block's expansion
+    (4 for Bottleneck, 1 for BasicBlock), as the JAX package's registry
+    sets its ``decoder_expansion``; without, segment mode raises.
 
     ``train`` puts every BatchNorm in train mode and turns dropout on, the
-    encoder's BatchNorm unless ``freeze_encoder_stats``. ``dropout_masks``
-    (``{head name: (mask0, mask1)}``) fixes the image heads' dropout; else
-    each head draws its masks from ``generator``, the class head first."""
+    encoder's BatchNorm (and EfficientNet's stochastic depth) unless
+    ``freeze_encoder_stats``. ``dropout_masks`` (``{head name: masks}``,
+    ``draw_masks``' tuples) fixes the image heads' dropout and
+    ``sd_masks`` the encoder's stochastic depth; else the encoder draws
+    its masks from ``generator`` first, then each head, the class head
+    first."""
 
     def __init__(self, encoder: nn.Module, num_tile_classes: int = 2,
-                 num_image_classes: int = 7, policy: Policy = DEFAULT_POLICY):
+                 num_image_classes: int = 7, policy: Policy = DEFAULT_POLICY,
+                 image_head_style: str = "mlp", supports_segment: bool = True):
         super().__init__()
         self.encoder = encoder
         self.policy = policy
+        self.supports_segment = supports_segment
         c = encoder.out_channels
+        head = {"mlp": ImageHeadMLP, "simple": ImageHeadSimple}[image_head_style]
         self.fc_tile = TileHead(c, num_tile_classes, policy)
-        self.fc_image_cls = ImageHeadMLP(c, num_image_classes, policy=policy)
-        self.fc_image_reg = ImageHeadMLP(c, 1, relu_out=True, policy=policy)
-        self.seg_decoder = SegDecoder(encoder.stage_channels,
-                                      encoder.block_cls.expansion, policy)
+        self.fc_image_cls = head(c, num_image_classes, policy=policy)
+        self.fc_image_reg = head(c, 1, relu_out=True, policy=policy)
+        if supports_segment:
+            self.seg_decoder = SegDecoder(encoder.stage_channels,
+                                          encoder.block_cls.expansion, policy)
+
+    def _no_decoder(self) -> NotImplementedError:
+        return NotImplementedError(
+            f"{type(self.encoder).__name__} has no segmentation decoder")
 
     def forward(self, x: torch.Tensor, mode: str = "tile", train: bool = False,
                 freeze_encoder_stats: bool = False, dropout_masks=None,
-                generator=None):
+                generator=None, sd_masks=None):
         if mode not in MODES:
             raise ValueError(f"invalid mode {mode!r}; expected one of {MODES}")
-        feats = self.encoder(x, train=train and not freeze_encoder_stats)
+        if mode == "segment" and not self.supports_segment:
+            raise self._no_decoder()
+        enc_train = train and not freeze_encoder_stats
+        if enc_train and hasattr(self.encoder, "sd_blocks"):
+            feats = self.encoder(x, train=True, sd_masks=sd_masks,
+                                 generator=generator)
+        else:
+            feats = self.encoder(x, train=enc_train)
         x4 = feats[0]
         if mode == "tile":
             return self.fc_tile(x4)
@@ -98,11 +123,13 @@ class MILNet(nn.Module):
         """``requires_grad`` on for the named partitions' parameters, off for
         every other's. BatchNorm statistics are not parameters: a frozen
         partition run in train mode still updates them, as in the JAX
-        package."""
+        package. Naming the seg decoder of a model without one raises, as
+        its segment mode does."""
+        if SEG_KEY in partitions and not self.supports_segment:
+            raise self._no_decoder()
         missing = set(partitions) - {n for n, _ in self.named_children()}
         if missing:
-            raise NotImplementedError(
-                f"partitions {sorted(missing)} are not ported yet")
+            raise KeyError(f"unknown partitions {sorted(missing)}")
         for name, child in self.named_children():
             child.requires_grad_(name in partitions)
 
@@ -113,3 +140,31 @@ def init_milnet(model: MILNet, seed: int = 0) -> MILNet:
     gen = torch.Generator().manual_seed(seed)
     init_weights(model, gen)
     return model.eval()
+
+
+@torch.no_grad()
+def settle_batch_stats(model: MILNet, x: torch.Tensor) -> MILNet:
+    """Test and benchmark fixture utility: set every BatchNorm's running
+    statistics to its batch statistics on one train-mode image forward of
+    ``x`` (normalized NHWC images), dropout and stochastic depth keeping
+    every row. A randomly initialized encoder's eval-mode activations then
+    keep their scale through its depth: at EfficientNet's init (kaiming
+    fan_out, as torchvision's) they shrink to ~1e-14 over B0's blocks,
+    where no engine or device comparison reads anything. (Train mode
+    normalizes by the batch alone, so zeroed running statistics come out
+    of flax's update as (1 - momentum) x the batch's.)"""
+    n, dev = x.shape[0], x.device
+    gen = torch.Generator(device=dev)
+    keep = {k: tuple(torch.ones_like(m) for m in getattr(model, k).draw_masks(n, gen, dev))
+            for k in IMAGE_HEADS}
+    sd = [torch.ones(n, dtype=torch.bool, device=dev)
+          for _ in getattr(model.encoder, "sd_blocks", ())]
+    bns = [m for m in model.modules() if isinstance(m, (nn.BatchNorm1d, nn.BatchNorm2d))]
+    for bn in bns:
+        bn.running_mean.zero_()
+        bn.running_var.zero_()
+    model(x, mode="image", train=True, dropout_masks=keep, sd_masks=sd)
+    for bn in bns:
+        bn.running_mean.div_(1 - BN_MOMENTUM)
+        bn.running_var.div_(1 - BN_MOMENTUM)
+    return model

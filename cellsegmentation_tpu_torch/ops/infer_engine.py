@@ -8,6 +8,10 @@
 - q8g, per tile: stem and layer1 in conv-land, layers 2-4 as int8 GEMMs
   from the tile's /4 map.
 
+An EfficientNet encoder folds through its own MBConv walk
+(ops/effnet_engine.py): every per-tile request builds that conv engine,
+and the dense engines do not apply, as in the JAX package.
+
 - BatchNorm is folded into the conv weights once per build (the encoder is
   frozen during stage 2 and the stage-3 draw, so folding stays valid);
 - conv-land runs as bf16 convs with bf16 outputs (``F.conv2d``, cuDNN on
@@ -636,10 +640,12 @@ def make_fast_tile_logits(
     the conv backend, as in the JAX package). None for an encoder that does
     not fold. The scales come from ``calib_tiles`` (normalized f32 pilot
     tiles) or are given as ``scales``: q8 keeps its own points of any
-    calibration, q8g needs every point (the projections' too)."""
+    calibration, q8g needs every point (the projections' too). An
+    EfficientNet builds its MBConv engine (``EffTrunkLogits``) under either
+    backend, its ``scales`` one per block."""
     folded = fold_tile_trunk(model)
     if folded is None:
-        return None
+        return _effnet_tile_logits(model, calib_tiles, scales)
     if scales is None:
         if calib_tiles is None:
             raise ValueError("the per-tile engines need calib_tiles or scales")
@@ -650,3 +656,22 @@ def make_fast_tile_logits(
                              "(TrunkScales with proj)")
         return TileGemmLogits(model, folded, scales, tile_size, w2_impl)
     return TileTrunkLogits(model, folded, conv_trunk_scales(scales))
+
+
+def _effnet_tile_logits(model: MILNet, calib_tiles, scales):
+    """The EfficientNet branch of ``make_fast_tile_logits``; None for an
+    encoder that folds through neither walk."""
+    from cellsegmentation_tpu_torch.ops.effnet_engine import (
+        EffTrunkLogits,
+        calibrate_effnet,
+        fold_effnet_trunk,
+    )
+
+    trunk = fold_effnet_trunk(model)
+    if trunk is None:
+        return None
+    if scales is None:
+        if calib_tiles is None:
+            raise ValueError("the per-tile engines need calib_tiles or scales")
+        scales = calibrate_effnet(trunk, np.asarray(calib_tiles, np.float32))
+    return EffTrunkLogits(model, trunk, scales)

@@ -350,29 +350,32 @@ def make_image_train_step(model: MILNet, heads: str = "both",
     padding out of the loss, while the padded rows still take part in every
     BatchNorm's batch statistics, as in the JAX package).
 
-    ``step(state, batch, dropout_masks=None) -> (state, metrics)``: the
-    masked-mean losses ``loss_cls`` (CE), ``loss_reg`` (MSE, or the
-    reference's WeightedMSELoss with ``reg_loss="weighted_mse"``) and
-    ``loss = CE + MSE`` (the reference's weights are 1 and 1) as device
-    scalars; the gradient is taken of the ``heads`` part alone. The
-    state's optimizer holds the stage's partitions (``"image"``,
-    ``"image_cls"`` or ``"image_reg"``, train/state.py); a frozen head
-    still runs in train mode and updates its BatchNorm statistics. Dropout masks come from ``dropout_generator(seed,
-    state.step)`` unless ``dropout_masks`` (``{head: (mask0, mask1)}``)
-    gives them. ``step.loss_fn(batch, dropout_masks=None, step=0)`` is the
-    forward alone: (loss, ce, se)."""
+    ``step(state, batch, dropout_masks=None, sd_masks=None) -> (state,
+    metrics)``: the masked-mean losses ``loss_cls`` (CE), ``loss_reg``
+    (MSE, or the reference's WeightedMSELoss with
+    ``reg_loss="weighted_mse"``) and ``loss = CE + MSE`` (the reference's
+    weights are 1 and 1) as device scalars; the gradient is taken of the
+    ``heads`` part alone. The state's optimizer holds the stage's
+    partitions (``"image"``, ``"image_cls"`` or ``"image_reg"``,
+    train/state.py); a frozen head still runs in train mode and updates its
+    BatchNorm statistics. Dropout masks come from ``dropout_generator(seed, state.step)`` unless
+    ``dropout_masks`` (``{head: masks}``, the heads' ``draw_masks``
+    tuples) gives them, and so do an EfficientNet encoder's
+    stochastic-depth masks (drawn first) unless ``sd_masks`` gives them
+    (models/efficientnet.py). ``step.loss_fn(batch, dropout_masks=None,
+    step=0, sd_masks=None)`` is the forward alone: (loss, ce, se)."""
     if heads not in HEADS:
         raise ValueError(f"heads must be one of {HEADS}, got {heads!r}")
     if reg_loss not in REG_LOSSES:
         raise ValueError(f"reg_loss must be one of {REG_LOSSES}, got {reg_loss!r}")
     dev = model_device(model, device)
 
-    def loss_fn(batch, dropout_masks=None, step=0):
+    def loss_fn(batch, dropout_masks=None, step=0, sd_masks=None):
         b = {k: _as_device(batch[k], dev) for k in _IMAGE_KEYS}
         x = normalize_images(b["images"], b["flip"])
-        gen = None if dropout_masks else dropout_generator(seed, step, dev)
         out_cls, out_reg = model(x, mode="image", train=True,
-                                 dropout_masks=dropout_masks, generator=gen)
+                                 dropout_masks=dropout_masks, sd_masks=sd_masks,
+                                 generator=dropout_generator(seed, step, dev))
         logp = F.log_softmax(out_cls.float(), dim=-1)
         ce = _masked_mean(-logp.gather(1, b["cls"].long()[:, None])[:, 0],
                           b["valid"])
@@ -384,8 +387,8 @@ def make_image_train_step(model: MILNet, heads: str = "both",
         loss = {"both": ce + se, "cls": ce, "reg": se}[heads]
         return loss, ce, se
 
-    def step(state, batch, dropout_masks=None):
-        loss, ce, se = loss_fn(batch, dropout_masks, state.step)
+    def step(state, batch, dropout_masks=None, sd_masks=None):
+        loss, ce, se = loss_fn(batch, dropout_masks, state.step, sd_masks)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         state.apply_gradients()

@@ -3,7 +3,8 @@
 
 Drives the port's stage-1, stage-2 and stage-3 paths and its serving
 CLIs' paths on one CUDA card, at the full width of ResNet-50 MILNet (and
-ResNeXt-50/101's grouped trunks and the ensemble CLIs' path) on 299^2 images (stage 2: 32-px tiles, interval 20, 225 tiles per image;
+ResNeXt-50/101's grouped trunks, the ensemble CLIs' path, and
+EfficientNet-B0/B2 through stages 1 and 2) on 299^2 images (stage 2: 32-px tiles, interval 20, 225 tiles per image;
 stage 3's draw: 16-px tiles, interval 5, 3,364 tiles per image;
 test_tile: 32-px tiles, interval 5, 3,025 tiles per image; detection:
 1,200x1,600-px ROIs in 299-px patches), with seeded random weights and
@@ -97,11 +98,28 @@ seeded synthetic LYSTO images:
    the test images, then ``test_ensemble``'s counts against round(mean) of
    the folds' own, which is neither a fold's count nor the median; the f32 card-vs-CPU image step gate on ResNeXt-50 with [stage1]'s
    planted faults, its images/s, MFU and peak memory;
-14. profile: device time by kernel over one sweep step: 29 launches of the
+14. effnet: EfficientNet-B0 and B2 at full width, every BatchNorm's
+   statistics set from the 1,800 tiles of 8 images (``settle_batch_stats``):
+   the sweep at
+   299/32/20 with auto (which must resolve to per-tile q8, the MBConv
+   engine) and flax in turns, counted (no hand-written kernel), with peak
+   memory; card vs CPU and engine vs exact graph under the limits below,
+   against three planted faults (the squeeze-excite gate left out, a
+   block's sandwich scale taken from its neighbour, stochastic depth at
+   inference); each one's stage-1 step at batch 48 (images/s, MFU, peak
+   memory) and B0's f32 card-vs-CPU gate under injected dropout and
+   stochastic-depth masks, against two planted faults (no 1/keep rescale,
+   stochastic depth on a non-residual block); ``train_stage1`` and
+   ``train_stage2`` one epoch each, their pt1/pt2 files reloaded exactly,
+   ``draw_pseudo_masks`` for one batch at 16/5 (auto -> q8; the statistics
+   set from its tiles, the heads pinned as in [stage3]),
+   ``train_stage3`` refused; profiles of the sweep step and the stage-1
+   step with depthwise convs and the squeeze-excite apart;
+15. profile: device time by kernel over one sweep step: 29 launches of the
    wgmma kernel under its own name and no other hand-written kernel;
-15. one JSON line with every kernel's launches and times (the q8g path's
+16. one JSON line with every kernel's launches and times (the q8g path's
    and each ResNeXt's kernels as entries of their own, ``"path"``);
-16. last line: {"ok": true, "device": {...}}.
+17. last line: {"ok": true, "device": {...}}.
 
 Run from the repository root: ``python3 chip_smoke.py`` (one card). Exits
 non-zero, printing no result, when a phase fails or no card is present.
@@ -287,15 +305,50 @@ S3_LOSS_RTOL = 2e-4
 S3_GRAD_MIN_COS = 0.9995
 S3_STAT_RTOL = 1e-3
 S3_CHECK_IMAGES = 4
+# [effnet]: EfficientNet-B0 and B2 at full width. At their kaiming fan_out
+# init the eval-mode activations shrink to ~1e-14 over the blocks, so every
+# BatchNorm's statistics are set first from the sweep's own 32-px tiles of
+# EFFNET_SETTLE_IMAGES images. (Set from 32 whole images, the tile
+# log-odds spread over a std of 0.00004-0.00012 only, below the card-vs-CPU
+# noise of the sweep, and rank correlation read nothing.)
+EFFNETS = ("efficientnet_b0", "efficientnet_b2")
+EFFNET_SETTLE_IMAGES = 8
+# Sweep log-odds (head x HEAD_SCALE) on 2 images, card vs CPU: (max, mean,
+# per-image rank correlation) limits per model and engine (auto: the MBConv
+# q8 engine). First reading (NVIDIA H100 80GB HBM3, 700 W): B0 auto max
+# 0.0063 mean 0.000047 rank 0.992, flax 0.0062 / 0.00011 / 0.987; B2 auto
+# 0.032 / 0.00063 / 0.826 (23 int8 sandwiches, each LSB 0.13-0.37 of an
+# O(1) activation: the card's bf16 roundings flip more of them), flax
+# 0.0099 / 0.000089 / 0.999. B0's planted faults read: the squeeze-excite
+# gate left out 0.90 / 0.24 / 0.05; a block's scale from its neighbour
+# 0.028 / 0.0012 / 0.65; stochastic depth at inference 0.29 / 0.0045 /
+# 0.51. B0's limits sit 3-6x above its clean readings and 1.4-800x below
+# each fault's; B2's, 3x above its clean readings, are a sanity gate (its
+# faults are not planted).
+EFFNET_LIMITS = {
+    "efficientnet_b0": {"auto": (0.02, 3e-4, 0.8), "flax": (0.02, 5e-4, 0.8)},
+    "efficientnet_b2": {"auto": (0.1, 2e-3, 0.6), "flax": (0.03, 3e-4, 0.8)},
+}
+# q8 against the exact graph on the card: mean at most EFFNET_EXACT_MEAN and
+# at most the CPU's own distance + EFFNET_EXACT_SLACK (first reading: card
+# 0.0023 / 0.0017, CPU 0.0024 / 0.0018, B0 / B2)
+EFFNET_EXACT_MEAN, EFFNET_EXACT_SLACK = 0.01, 1e-3
+# stage 1 on B0: the [stage1] batch, one epoch of train_stage1 and of
+# train_stage2, and the draw of one image batch on the 16/5 grid
+EFFNET_DRAW_BATCH = 32
 
 
 # kernel kinds of a profile, by words of the kernel's name, first match
 PROFILE_KINDS = (
     ("hand-written int8 GEMMs", ("q8_wgmma",)),
     ("BatchNorm (cuDNN)", ("batchnorm", "batch_norm", "bn_fw", "bn_bw")),
-    ("convs (cuDNN, CUTLASS)", ("fprop", "dgrad", "wgrad", "xmma", "cutlass",
-                                "cudnn::cnn", "implicit_gemm", "convolution",
-                                "convolve")),
+    # cuDNN's depthwise kernels (conv2d_c1_k1_nhwc..., dgrad2d_c1_k1...,
+    # wgrad2d_c1_k1...) and PyTorch's own
+    ("depthwise convs", ("c1_k1_nhwc", "conv_depthwise", "depthwise")),
+    # cuDNN runs a 1x1 conv, and cuBLAS a Linear, as an nvjet GEMM
+    ("convs and GEMMs (cuDNN, cuBLAS, CUTLASS)",
+     ("fprop", "dgrad", "wgrad", "xmma", "cutlass", "cudnn::cnn", "implicit_gemm",
+      "convolution", "convolve", "nvjet", "gemm")),
     # the seg decoder's align-corners resizes: index_select forward,
     # index_add backward
     ("gathers and scatters", ("indexFunc", "indexSelect", "scatter_gather")),
@@ -746,7 +799,7 @@ def _logodds(p):
     return np.log(p) - np.log1p(-p)
 
 
-def _gate(lg, lc, max_lim=CARD_CPU_MAX, mean_lim=CARD_CPU_MEAN):
+def _gate(lg, lc, max_lim=CARD_CPU_MAX, mean_lim=CARD_CPU_MEAN, rank_lim=MIN_RANK_CORR):
     """The card-vs-CPU gate on tile log-odds [images, tiles]: (max |diff|,
     mean |diff|, each image's rank correlation, passes): within both limits
     and every image's tiles ranked alike (a wrong tile order or flip)."""
@@ -754,7 +807,7 @@ def _gate(lg, lc, max_lim=CARD_CPU_MAX, mean_lim=CARD_CPU_MEAN):
 
     d = np.abs(lg - lc)
     rank = [float(np.corrcoef(_ranks(lg[i]), _ranks(lc[i]))[0, 1]) for i in range(len(lg))]
-    ok = d.max() <= max_lim and d.mean() <= mean_lim and min(rank) >= MIN_RANK_CORR
+    ok = d.max() <= max_lim and d.mean() <= mean_lim and min(rank) >= rank_lim
     return float(d.max()), float(d.mean()), rank, ok
 
 
@@ -1072,9 +1125,10 @@ def phase_train(args, card, base, src):
         check(not ok, f"the train-step gate passes a planted fault: {fault}")
 
 
-def stage1_step_reading(model, batch, masks, dev):
+def stage1_step_reading(model, batch, masks, dev, sd_masks=None):
     """One stage-1 train step (SGD at S1_CHECK_LR, no scheduler) on ``model``
-    under the injected dropout ``masks``: (loss, gradient of every trainable
+    under the injected dropout ``masks`` (and an EfficientNet's
+    stochastic-depth ``sd_masks``): (loss, gradient of every trainable
     parameter, running statistics, the parameters' update), the last three
     as f64 CPU tensors."""
     import torch
@@ -1093,11 +1147,26 @@ def stage1_step_reading(model, batch, masks, dev):
 
     before = flat(params)
     masks = {k: tuple(m.to(dev) for m in v) for k, v in masks.items()}
-    _, metrics = step(state, batch, dropout_masks=masks)
+    if sd_masks is not None:
+        sd_masks = [m.to(dev) for m in sd_masks]
+    _, metrics = step(state, batch, dropout_masks=masks, sd_masks=sd_masks)
     stats = {k: v.detach().double().cpu() for k, v in model.state_dict().items()
              if "running_" in k}
     return (float(metrics["loss"]), flat(p.grad for p in params), stats,
             flat(params) - before)
+
+
+def _stat_scale(stats, k):
+    """A running statistic's scale: its largest entry, and for a running
+    mean at least its BatchNorm's largest standard deviation. (A mean that
+    is zero by construction is rounding alone: EfficientNet's expand 1x1s
+    read a train-mode BatchNorm's output, whose batch mean is 0, and their
+    running means sit near 1e-8, where the card and the CPU part by 100%
+    while every gradient agrees.)"""
+    scale = float(stats[k].abs().max())
+    if k.endswith("running_mean"):
+        scale = max(scale, float(stats[k.replace("running_mean", "running_var")].max()) ** 0.5)
+    return scale
 
 
 def stage1_gap(got, want):
@@ -1106,7 +1175,7 @@ def stage1_gap(got, want):
     (lg, gg, sg, ug), (lc, gc, sc, uc) = got, want
     rel = abs(lg - lc) / abs(lc)
     cos = float(gg @ gc / (gg.norm() * gc.norm()))
-    stat = max(float((sg[k] - sc[k]).abs().max() / sc[k].abs().max()) for k in sc)
+    stat = max(float((sg[k] - sc[k]).abs().max()) / _stat_scale(sc, k) for k in sc)
     update = float((ug - uc).abs().max() / uc.abs().max())
     ok = (rel <= S1_LOSS_RTOL and cos >= S1_GRAD_MIN_COS and stat <= S1_STAT_RTOL
           and update <= S1_WEIGHT_RTOL)
@@ -1117,10 +1186,31 @@ def stage1_gap(got, want):
 def planted_stage1_fault(fault, model):
     """A fault planted in the port's stage-1 path for the gate to reject:
     ``"unbiased running variance"`` (torch's own update rule in train-mode
-    BatchNorm), ``"dropout scaled by keep"`` (x * keep for x / keep)."""
-    from cellsegmentation_tpu_torch.models import common
+    BatchNorm), ``"dropout scaled by keep"`` (x * keep for x / keep), and
+    EfficientNet's ``"stochastic depth without 1/keep"`` (x * mask) and
+    ``"stochastic depth on a non-residual block"`` (the first masked
+    block's mask applied to the stage's first block, which has no
+    residual)."""
+    from cellsegmentation_tpu_torch.models import common, efficientnet
 
-    if fault == "unbiased running variance":
+    if fault == "stochastic depth without 1/keep":
+        orig = efficientnet.stochastic_depth
+        efficientnet.stochastic_depth = lambda x, mask, prob: x * mask.to(x.dtype).view(
+            -1, 1, 1, 1)
+        try:
+            yield
+        finally:
+            efficientnet.stochastic_depth = orig
+    elif fault == "stochastic depth on a non-residual block":
+        enc = model.encoder
+        orig = enc.sd_blocks
+        plain = max(i for i in range(orig[0]) if not enc.blocks[i].use_res)
+        enc.sd_blocks = (plain, *orig[1:])
+        try:
+            yield
+        finally:
+            enc.sd_blocks = orig
+    elif fault == "unbiased running variance":
         orig = common.batch_norm
 
         def unbiased(x, bn, train):
@@ -1220,9 +1310,11 @@ def _stage1_rate(model, train, args, card, tag):
     return STAGE1_BATCH / med
 
 
-def _stage1_gate(args, train, name, tag):
+def _stage1_gate(args, train, name, tag, faults=None):
     """One f32 image train step of a fresh ``name`` model, card against
-    CPU, and the planted faults this gate must reject."""
+    CPU, and the planted faults this gate must reject: ``faults`` (names of
+    ``planted_stage1_fault``'s) or the ResNet set. An EfficientNet's
+    stochastic-depth masks are injected too, each dropping one row."""
     import numpy as np
     import torch
 
@@ -1236,24 +1328,31 @@ def _stage1_gate(args, train, name, tag):
     gen = torch.Generator().manual_seed(args.seed)
     masks = {k: getattr(cpu_model, k).draw_masks(len(pick), gen)
              for k in ("fc_image_cls", "fc_image_reg")}
+    sd = None
+    if hasattr(cpu_model.encoder, "sd_blocks"):
+        rows = torch.arange(len(pick))
+        sd = [rows != j % len(pick) for j in range(len(cpu_model.encoder.sd_blocks))]
     t0 = time.perf_counter()
-    cpu = stage1_step_reading(cpu_model, batch, masks, "cpu")
+    cpu = stage1_step_reading(cpu_model, batch, masks, "cpu", sd)
     cpu_s = time.perf_counter() - t0
 
     def card_reading(b=batch, fault=None):
         m = build_model(name, policy=F32_POLICY, device="cuda", seed=args.seed)
         if fault is None:
-            return stage1_step_reading(m, b, masks, "cuda")
+            return stage1_step_reading(m, b, masks, "cuda", sd)
         with planted_stage1_fault(fault, m):
-            return stage1_step_reading(m, b, masks, "cuda")
+            return stage1_step_reading(m, b, masks, "cuda", sd)
 
     limits = (f"limits rel {S1_LOSS_RTOL}, cos {S1_GRAD_MIN_COS}, stat {S1_STAT_RTOL}, "
               f"update {S1_WEIGHT_RTOL}")
     # every reading first, then the verdicts, so one run shows them all
-    planted = {"unbiased running variance": (batch, "unbiased running variance"),
-               "dropout scaled by keep": (batch, "dropout scaled by keep"),
-               "flipped images fed unflipped": (dict(batch, flip=np.zeros_like(batch["flip"])),
-                                                None)}
+    if faults is None:
+        planted = {"unbiased running variance": (batch, "unbiased running variance"),
+                   "dropout scaled by keep": (batch, "dropout scaled by keep"),
+                   "flipped images fed unflipped": (
+                       dict(batch, flip=np.zeros_like(batch["flip"])), None)}
+    else:
+        planted = {f: (batch, f) for f in faults}
     gaps = {None: stage1_gap(card_reading(), cpu)}
     gaps.update({fault: stage1_gap(card_reading(b, planted_as), cpu)
                  for fault, (b, planted_as) in planted.items()})
@@ -2409,6 +2508,346 @@ def phase_ensemble(args, card):
     print(f"[ensemble] phase {time.perf_counter() - t_phase:.1f} s")
 
 
+@contextlib.contextmanager
+def _se_range(name="squeeze-excite"):
+    """Every squeeze-excite gate, the engine's and the model's, inside a
+    ``record_function`` range called ``name`` (for the profiles)."""
+    from torch.profiler import record_function
+
+    from cellsegmentation_tpu_torch.models import efficientnet
+    from cellsegmentation_tpu_torch.ops import effnet_engine
+
+    se_fn, se_fwd = effnet_engine._se, efficientnet.SqueezeExcitation.forward
+
+    def se(x, w):
+        with record_function(name):
+            return se_fn(x, w)
+
+    def fwd(self, x):
+        with record_function(name):
+            return se_fwd(self, x)
+
+    effnet_engine._se, efficientnet.SqueezeExcitation.forward = se, fwd
+    try:
+        yield name
+    finally:
+        effnet_engine._se, efficientnet.SqueezeExcitation.forward = se_fn, se_fwd
+
+
+@contextlib.contextmanager
+def _planted_effnet_sweep_fault(fault, model, step):
+    """A fault planted in an EfficientNet sweep for the card-vs-CPU gate:
+    ``"squeeze-excite gate left out"`` (the engine's x * gate is x),
+    ``"a block's sandwich scale from its neighbour"`` (on ``step``'s engine,
+    the block whose scale differs most from the next one's), ``"stochastic
+    depth at inference"`` (the exact graph's encoder draws its masks in
+    eval mode)."""
+    from cellsegmentation_tpu_torch.models.efficientnet import EfficientNetEncoder
+    from cellsegmentation_tpu_torch.ops import effnet_engine
+
+    if fault == "squeeze-excite gate left out":
+        orig = effnet_engine._se
+        effnet_engine._se = lambda x, se: x
+        try:
+            yield
+        finally:
+            effnet_engine._se = orig
+    elif fault == "a block's sandwich scale from its neighbour":
+        sc = step.engine.scales
+        i = max(range(len(sc) - 1), key=lambda j: abs(math.log(sc[j + 1] / sc[j])))
+        orig = sc[i]
+        sc[i] = sc[i + 1]
+        try:
+            yield
+        finally:
+            sc[i] = orig
+    else:
+        enc = model.encoder
+
+        def block_masks(n, train, *a, **k):
+            return EfficientNetEncoder.block_masks(enc, n, True, *a, **k)
+
+        enc.block_masks = block_masks
+        try:
+            yield
+        finally:
+            del enc.block_masks
+
+
+def _effnet_sweeps(args, card, src, name):
+    """One EfficientNet's sweep at 299/32/20: auto (-> q8, the MBConv
+    engine) and flax, counted and timed in turns with their peak memory;
+    each against the port on the CPU and the engine against the exact
+    graph; on B0 the planted faults. Returns (model, auto step)."""
+    import numpy as np
+    import torch
+
+    from cellsegmentation_tpu_torch.data import normalize_images
+    from cellsegmentation_tpu_torch.kernels import q8_gemm as tq
+    from cellsegmentation_tpu_torch.models import build_model
+    from cellsegmentation_tpu_torch.models.milnet import settle_batch_stats
+    from cellsegmentation_tpu_torch.ops.effnet_engine import EffTrunkLogits
+    from cellsegmentation_tpu_torch.ops.infer_engine import pick_calib_images
+    from cellsegmentation_tpu_torch.ops.tiles import extract_tiles
+    from cellsegmentation_tpu_torch.train.steps import make_tile_infer_step
+
+    n_batches = math.ceil(len(src) / args.image_batch)
+    model = quiet_head(build_model(name, device="cuda", seed=args.seed))
+    coords = _coords(args)
+    x = extract_tiles(torch.as_tensor(src.images[:EFFNET_SETTLE_IMAGES]).cuda(), coords,
+                      args.tile).flatten(0, 1)
+    settle_batch_stats(model, normalize_images(x, torch.zeros(len(x), dtype=torch.int32,
+                                                                 device="cuda")))
+    t0 = time.perf_counter()
+    steps = {"auto": make_tile_infer_step(model, args.tile, coords, engine="auto",
+                                          calib_images=pick_calib_images(src.images),
+                                          device="cuda"),
+             "flax": make_tile_infer_step(model, args.tile, coords, engine="flax",
+                                          device="cuda")}
+    build_s = time.perf_counter() - t0
+    check(steps["auto"].resolved_engine == "q8"
+          and isinstance(steps["auto"].engine, EffTrunkLogits),
+          f"{name}: auto resolved to {steps['auto'].resolved_engine}, want q8")
+    scales = steps["auto"].engine.scales
+    print(f"[effnet] {name} at full width ({len(model.encoder.blocks)} blocks, feature_dim "
+          f"{model.encoder.feature_dim}, head x {HEAD_SCALE}, statistics from the "
+          f"{len(x)} tiles of {EFFNET_SETTLE_IMAGES} images): auto -> q8, the MBConv "
+          f"engine, built in "
+          f"{build_s:.1f} s; block-output scales {[round(v, 4) for v in scales]}")
+    peaks = {}
+    for key, st in steps.items():
+        _warm_flips(st, src, args.image_batch)
+        tq.reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        probs, _ = _sweep(src, st, args)
+        peaks[key] = torch.cuda.max_memory_allocated()
+        launches = {fn.__name__: fn.launches for fn in tq.KERNELS}
+        check(not any(launches.values()), f"{name} {key} sweep launched {launches}")
+        check(probs.shape == (len(src), 225) and bool(np.isfinite(probs).all()),
+              f"{name} {key} probs {probs.shape}")
+    passes = {k: [] for k in steps}
+    for i in range(SWEEP_REPEATS):
+        for key in (list(passes) if i % 2 == 0 else list(reversed(passes))):
+            passes[key].append(_sweep(src, steps[key], args)[1])
+    ips = {k: len(src) / float(np.median(v)) for k, v in passes.items()}
+    print(f"[effnet] {name} sweeps at 299/32/20, {n_batches} image batches of "
+          f"{args.image_batch} (M = {args.image_batch * 225}), no hand-written kernel "
+          f"launched; in turns, s: { {k: [round(v, 4) for v in p] for k, p in passes.items()} }; "
+          f"median images/s: " + ", ".join(f"{k} {v:.1f}" for k, v in ips.items())
+          + "; peak memory " + ", ".join(f"{k} {v / 2**30:.2f} GiB" for k, v in peaks.items())
+          + f" on {card}")
+
+    imgs, flip = src.images[:2], np.asarray([0, 3], np.int32)
+    cpu_model = build_model(name, device="cpu", seed=args.seed)
+    cpu_model.load_state_dict(model.state_dict())
+    cpu = {"auto": make_tile_infer_step(cpu_model, args.tile, coords, engine="auto",
+                                        scales=scales, device="cpu"),
+           "flax": make_tile_infer_step(cpu_model, args.tile, coords, engine="flax",
+                                        device="cpu")}
+    check(cpu["auto"].resolved_engine == "q8", "CPU auto resolution")
+    lo = {(k, d): _logodds((steps[k] if d == "card" else cpu[k])(imgs, flip).cpu().numpy())
+          for k in steps for d in ("card", "cpu")}
+    limits = EFFNET_LIMITS[name]
+    for key in steps:
+        mx, mean, rank, ok = _gate(lo[key, "card"], lo[key, "cpu"], *limits[key])
+        print(f"[effnet] {name} {key} log-odds card vs CPU: max {mx:.5f} mean {mean:.6f} "
+              f"rank corr {min(rank):.4f} (limits {limits[key]}); card log-odds "
+              f"{lo[key, 'card'].min():.4f}.."
+              f"{lo[key, 'card'].max():.4f} (std {lo[key, 'card'].std():.5f})")
+        check(ok, f"{name} {key}: card and CPU differ by max {mx:.5f} mean {mean:.6f} "
+              f"rank {min(rank):.4f}")
+    e_g = np.abs(lo["auto", "card"] - lo["flax", "card"])
+    e_c = np.abs(lo["auto", "cpu"] - lo["flax", "cpu"])
+    print(f"[effnet] {name} q8 vs the exact graph, log-odds: card max {e_g.max():.5f} mean "
+          f"{e_g.mean():.6f}; CPU max {e_c.max():.5f} mean {e_c.mean():.6f} (limits: card "
+          f"mean <= {EFFNET_EXACT_MEAN} and <= CPU mean + {EFFNET_EXACT_SLACK})")
+    check(e_g.mean() <= EFFNET_EXACT_MEAN and e_g.mean() <= e_c.mean() + EFFNET_EXACT_SLACK,
+          f"{name}: q8 sits {e_g.mean():.5f} from the exact graph on the card")
+    if name == EFFNETS[0]:
+        for fault, key in (("squeeze-excite gate left out", "auto"),
+                           ("a block's sandwich scale from its neighbour", "auto"),
+                           ("stochastic depth at inference", "flax")):
+            st = make_tile_infer_step(model, args.tile, coords, engine=key, device="cuda",
+                                      scales=scales if key == "auto" else None)
+            with _planted_effnet_sweep_fault(fault, model, st):
+                lg = _logodds(st(imgs, flip).cpu().numpy())
+            mx, mean, rank, ok = _gate(lg, lo[key, "cpu"], *limits[key])
+            print(f"[effnet] planted fault in {key} ({fault}) vs CPU: max {mx:.5f} mean "
+                  f"{mean:.6f} rank corr {min(rank):.4f}: "
+                  f"{'passes' if ok else 'rejected'}")
+            check(not ok, f"the {key} gate passes a planted fault: {fault}")
+    return model, steps["auto"]
+
+
+def phase_effnet(args, card, src):
+    """EfficientNet-B0/B2 through stages 1 and 2 on the card (module
+    docstring, item 14)."""
+    import numpy as np
+    import torch
+
+    from cellsegmentation_tpu_torch.data import (
+        LystoDataSource,
+        MaskDataSource,
+        normalize_images,
+    )
+    from cellsegmentation_tpu_torch.kernels import q8_gemm as tq
+    from cellsegmentation_tpu_torch.models import build_model
+    from cellsegmentation_tpu_torch.models.milnet import settle_batch_stats
+    from cellsegmentation_tpu_torch.ops.infer_engine import pick_calib_images
+    from cellsegmentation_tpu_torch.ops.tiles import extract_tiles, tile_grid
+    from cellsegmentation_tpu_torch.train import checkpoint as ckpt_mod
+    from cellsegmentation_tpu_torch.train.schedules import make_schedule
+    from cellsegmentation_tpu_torch.train.state import create_train_state
+    from cellsegmentation_tpu_torch.train.steps import (
+        make_image_infer_step,
+        make_image_train_step,
+        make_tile_infer_step,
+    )
+    from cellsegmentation_tpu_torch.train.trainers import (
+        draw_pseudo_masks,
+        train_stage1,
+        train_stage2,
+        train_stage3,
+    )
+    from cellsegmentation_tpu_torch.utils.logging import RunLogger
+
+    t_phase = time.perf_counter()
+    tq.reset_launch_counts()
+    flip0 = np.zeros(args.image_batch, np.int32)
+    train, val = _stage1_sources(args)
+    b0, sweep_step = None, None
+    for name in EFFNETS:
+        model, step = _effnet_sweeps(args, card, src, name)
+        print(f"[effnet] {name}'s stage-1 step:")
+        _stage1_rate(model, train, args, card, "effnet")
+        if name == EFFNETS[0]:
+            b0, sweep_step = model, step
+        else:
+            del model, step
+    with _se_range() as se:
+        _profile_rows("effnet", f"{EFFNETS[0]} q8 sweep step, {args.image_batch} images "
+                      f"x 225 tiles", lambda: sweep_step(src.images[: args.image_batch], flip0),
+                      split=se)
+    del sweep_step
+
+    # stage 1 on B0: the f32 gate, the step's profile, train_stage1 for one epoch
+    _stage1_gate(args, train, EFFNETS[0], "effnet",
+                 faults=("stochastic depth without 1/keep",
+                         "stochastic depth on a non-residual block"))
+    state = create_train_state(copy.deepcopy(b0), "image",
+                               make_schedule(None, STAGE1_LR, 1, 1), device="cuda")
+    step = make_image_train_step(state.model, seed=args.seed, device="cuda")
+    batch = _stage1_batch(train, np.arange(STAGE1_BATCH))
+    with _se_range() as se:
+        _profile_rows("effnet", f"{EFFNETS[0]} stage-1 train step, batch {STAGE1_BATCH}",
+                      lambda: step(state, batch), split=se)
+    del state, step
+
+    model = build_model(EFFNETS[0], device="cuda", seed=args.seed)
+    with tempfile.TemporaryDirectory() as out:
+        log = RunLogger(out, run_name="effnet", tensorboard=False)
+        t0 = time.perf_counter()
+        res1 = train_stage1(model, train, val, epochs=1, batch_size=STAGE1_BATCH,
+                            lr=STAGE1_LR, seed=args.seed, encoder_name=EFFNETS[0],
+                            output_dir=out, device="cuda", logger=log)
+        s1 = time.perf_counter() - t0
+        st = res1.epoch_stats[0]
+        check(all(math.isfinite(st[k]) for k in ("loss_cls", "loss_reg", "loss")),
+              f"train_stage1 losses {st}")
+        pt1 = ckpt_mod.load_checkpoint(f"{out}/pt1_1epochs.ckpt")
+        check(pt1["encoder"] == EFFNETS[0] and pt1["mode"] == "image", "pt1 payload")
+        fresh = ckpt_mod.restore_into(build_model(EFFNETS[0], device="cuda", seed=1), pt1)
+        for k, v in pt1["state_dict"].items():
+            check(torch.equal(fresh.state_dict()[k].cpu(), v), f"pt1 entry {k}")
+        vimgs, vflip = val.gather_images(np.arange(len(val))), val.flip_code
+        want = make_image_infer_step(model, device="cuda")(vimgs, vflip)
+        got = make_image_infer_step(fresh, device="cuda")(vimgs, vflip)
+        check(all(torch.equal(a, b) for a, b in zip(want, got)), "pt1 counts differ")
+        print(f"[effnet] train_stage1: 1 epoch of {st['steps']} steps (batch {STAGE1_BATCH}) "
+              f"in {s1:.1f} s, loss {st['loss']:.6f}, validation {res1.last_metrics}; "
+              f"pt1 ({len(pt1['state_dict'])} entries) reloads exactly, the same counts")
+
+        # stage 2 from it, on the [slice] source's first images
+        n2 = EFFNET_DRAW_BATCH
+        tsrc = LystoDataSource.from_arrays(src.images[:n2], ["colon_0"] * n2,
+                                           src.labels[:n2], kfold=None, augment=True)
+        vsrc = LystoDataSource.from_arrays(src.images[n2:n2 + 8], ["colon_0"] * 8,
+                                           src.labels[n2:n2 + 8], kfold=None)
+        st2 = make_tile_infer_step(model, args.tile, _coords(args), engine="auto",
+                                   calib_images=pick_calib_images(tsrc.images), device="cuda")
+        check(st2.resolved_engine == "q8", f"stage-2 auto -> {st2.resolved_engine}")
+        t0 = time.perf_counter()
+        res2 = train_stage2(model, tsrc, vsrc, epochs=1, image_batch=args.image_batch,
+                            tile_size=args.tile, interval=args.interval, lr=5e-5,
+                            seed=args.seed, encoder_name=EFFNETS[0], output_dir=out,
+                            infer_engine="auto", device="cuda", logger=log)
+        s2 = time.perf_counter() - t0
+        pt2 = ckpt_mod.load_checkpoint(f"{out}/pt2_1epochs.ckpt")
+        check(pt2["encoder"] == EFFNETS[0] and pt2["mode"] == "tile", "pt2 payload")
+        for k, v in pt1["state_dict"].items():
+            check(torch.equal(pt2["state_dict"][k], v), f"stage 2 moved {k}")
+        fresh = ckpt_mod.restore_into(build_model(EFFNETS[0], device="cuda", seed=1), pt2)
+        for k, v in model.state_dict().items():
+            check(torch.equal(fresh.state_dict()[k], v), f"pt2 entry {k}")
+        print(f"[effnet] train_stage2: 1 epoch on {len(tsrc)} samples (auto -> q8) in "
+              f"{s2:.1f} s, {res2.epoch_stats[0]}; validation {res2.last_metrics}; pt2 "
+              f"reloads exactly, its encoder pt1's bit for bit")
+
+        # the draw of one image batch at 16/5, then train_stage3's refusal
+        dsrc = LystoDataSource.from_arrays(src.images[:EFFNET_DRAW_BATCH],
+                                           ["colon_0"] * EFFNET_DRAW_BATCH,
+                                           src.labels[:EFFNET_DRAW_BATCH], kfold=None)
+        coords16 = tile_grid(args.hw, args.hw, STAGE3_TILE, STAGE3_INTERVAL)
+        # five steps of stage 1 leave the running statistics near their init,
+        # where the eval-mode tiles' log-odds are all one value: set them from
+        # the draw's own 16-px tiles first, as for the sweeps
+        x = extract_tiles(torch.as_tensor(dsrc.images[:EFFNET_SETTLE_IMAGES]).cuda(),
+                          coords16, STAGE3_TILE).flatten(0, 1)
+        settle_batch_stats(model, normalize_images(
+            x, torch.zeros(len(x), dtype=torch.int32, device="cuda")))
+        del x
+        dstep = make_tile_infer_step(model, STAGE3_TILE, coords16, engine="auto",
+                                     calib_images=pick_calib_images(dsrc.images),
+                                     device="cuda")
+        check(dstep.resolved_engine == "q8", f"draw auto -> {dstep.resolved_engine}")
+        # as in [stage3]: the count head pinned at 5, the tile head's bias set
+        # so that STAGE3_PASS_SHARE of the first two images' tiles pass
+        with torch.no_grad():
+            model.fc_image_reg[2].weight.zero_()
+            model.fc_image_reg[2].bias.fill_(5.0)
+            lo = _logodds(dstep(dsrc.images[:2], np.zeros(2, np.int32)).cpu().numpy())
+            model.fc_tile[1].bias[1] += float(
+                math.log(STAGE3_THRESHOLD / (1 - STAGE3_THRESHOLD))
+                - np.quantile(lo, 1 - STAGE3_PASS_SHARE))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        masks = draw_pseudo_masks(model, dsrc, tile_size=STAGE3_TILE,
+                                  interval=STAGE3_INTERVAL, threshold=STAGE3_THRESHOLD,
+                                  image_batch=EFFNET_DRAW_BATCH, logger=log,
+                                  infer_tiles_fn=dstep, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(masks.shape == (EFFNET_DRAW_BATCH, args.hw, args.hw), f"masks {masks.shape}")
+        print(f"[effnet] draw_pseudo_masks: {EFFNET_DRAW_BATCH} images x {len(coords16)} "
+              f"tiles at 16/5 (auto -> q8; the first two images' log-odds std "
+              f"{lo.std():.5f} before the bias) in {wall:.2f} s "
+              f"({EFFNET_DRAW_BATCH / wall:.1f} images/s), {int(masks.any(axis=(1, 2)).sum())} "
+              f"images with kept tiles")
+        msrc = MaskDataSource.from_arrays(dsrc.images, masks)
+        try:
+            train_stage3(model, msrc, epochs=1, batch_size=4, output_dir=out,
+                         device="cuda", logger=log)
+        except NotImplementedError as exc:
+            print(f"[effnet] train_stage3 refused: {exc}")
+        else:
+            check(False, "train_stage3 ran on an EfficientNet")
+    launches = {fn.__name__: fn.launches for fn in tq.KERNELS}
+    check(not any(launches.values()), f"the EfficientNet paths launched {launches}")
+    print(f"[effnet] hand-written kernel launches over the phase: {launches}")
+    print(f"[effnet] phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def _block_cv2_sklearn() -> None:
     """Make ``cv2`` and ``sklearn`` unimportable in this process, as on a
     machine without them: a ``None`` entry in ``sys.modules`` fails every
@@ -2653,10 +3092,33 @@ def _ranks(v):
     return np.argsort(np.argsort(v, kind="stable"), kind="stable")
 
 
-def _profile_rows(tag, what, fn, top=15):
+def _range_kernels(prof, name):
+    """(ms, kernel name) of every kernel launched under the
+    ``record_function`` ranges called ``name`` (their CPU ops' subtrees)."""
+    out = []
+
+    def walk(e):
+        out.extend((k.duration / 1e3, k.name) for k in getattr(e, "kernels", ()))
+        for c in e.cpu_children:
+            walk(c)
+
+    for e in prof.events():
+        if e.name == name:
+            walk(e)
+    return out
+
+
+def _kind(key):
+    return next((k for k, words in PROFILE_KINDS if any(w in key for w in words)),
+                "elementwise and other")
+
+
+def _profile_rows(tag, what, fn, top=15, split=None):
     """Device time by kernel name over one call of ``fn`` after 5
     unprofiled ones: prints the step's wall time, the device's busy share
-    and the top kernels; returns ([(ms, count, name)], busy ms)."""
+    and the top kernels; returns ([(ms, count, name)], busy ms). ``split``
+    names a ``record_function`` range that ``fn`` opens: the kernels under
+    it form a kind of their own, taken out of their name's kind."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2686,9 +3148,13 @@ def _profile_rows(tag, what, fn, top=15):
         print(f"[{tag}] {ms:8.3f} ms {n:4d}x {key[:110]}")
     kinds = {}
     for ms, n, key in rows:
-        kind = next((k for k, words in PROFILE_KINDS if any(w in key for w in words)),
-                    "elementwise and other")
-        kinds[kind] = kinds.get(kind, 0.0) + ms
+        kinds[_kind(key)] = kinds.get(_kind(key), 0.0) + ms
+    if split is not None:
+        under = _range_kernels(prof, split)
+        for ms, key in under:
+            kinds[_kind(key)] -= ms
+        kinds[split] = sum(ms for ms, _ in under)
+        print(f"[{tag}] {len(under)} kernels under the {split!r} ranges")
     print(f"[{tag}] device time by kind: " + "; ".join(
         f"{k} {ms:.3f} ms ({100 * ms / busy:.1f}%)"
         for k, ms in sorted(kinds.items(), key=lambda kv: -kv[1])))
@@ -2856,6 +3322,9 @@ def main(argv=None) -> int:
 
         phase = "ensemble"
         phase_ensemble(args, card)
+
+        phase = "effnet"
+        phase_effnet(args, card, src)
 
         phase = "profile"
         phase_profile(step, src.images[: args.image_batch])

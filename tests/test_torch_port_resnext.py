@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+from cellsegmentation_tpu import models as jmodels
 from cellsegmentation_tpu.core.dtypes import DEFAULT_POLICY as J_BF16
 from cellsegmentation_tpu.core.dtypes import F32_POLICY as J_F32
 from cellsegmentation_tpu.data.batches import normalize_images as jnormalize
@@ -120,9 +121,10 @@ def fx():
 
 def test_registry_builds_both_resnexts():
     """resnext50_32x4d and resnext101_32x8d build with the JAX registry's
-    widths: the grouped 3x3 of layer s is [c_mid, c_mid/32, 3, 3]; only
-    EfficientNet is still refused. (ResNeXt-101's modules are made on the
-    meta device: its seeded weights cost seconds and are not read here.)"""
+    widths: the grouped 3x3 of layer s is [c_mid, c_mid/32, 3, 3]; both
+    EfficientNets build too, and MODEL_NAMES is the JAX package's.
+    (ResNeXt-101's modules are made on the meta device: its seeded weights
+    cost seconds and are not read here.)"""
     assert {"resnext50_32x4d", "resnext101_32x8d"} <= set(MODEL_NAMES)
     for name, bw, c_mid in (("resnext50_32x4d", 4, (128, 256, 512, 1024)),
                             ("resnext101_32x8d", 8, (256, 512, 1024, 2048))):
@@ -136,8 +138,10 @@ def test_registry_builds_both_resnexts():
             w = getattr(enc, f"layer{s + 1}")[0].conv2.weight
             assert tuple(w.shape) == (c, c // GROUPS, 3, 3)
         assert enc.out_channels == 2048
-    with pytest.raises(NotImplementedError, match="EfficientNet"):
-        build_model("efficientnet_b0", device="cpu")
+    for name in ("efficientnet_b0", "efficientnet_b2"):
+        assert isinstance(build_model(name, device="cpu").encoder,
+                          models.EfficientNetEncoder)
+    assert MODEL_NAMES == jmodels.MODEL_NAMES
 
 
 # f32 policy on both sides: rtol 1e-3 of each output's largest value (a
