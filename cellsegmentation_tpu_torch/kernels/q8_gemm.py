@@ -72,14 +72,20 @@ def int_matmul(a: torch.Tensor, bt: torch.Tensor) -> torch.Tensor:
     return a.int() @ bt.int().T
 
 
+def dequantize_plain(acc, w_scale, bias=None, in_scale=1.0):
+    """The epilogue's first step: the int32 accumulator [..., N] in f32
+    times ``in_scale * w_scale``, plus ``bias``."""
+    y = acc.to(torch.float32) * (_f32(in_scale, acc.device) * w_scale)
+    return y if bias is None else y + bias
+
+
 def epilogue_plain(acc, bias, w_scale, residual=None, out_kind="int8",
                    in_scale=1.0, res_scale=1.0, out_scale=1.0, relu=True):
     """The kernels' shared epilogue on an int32 accumulator [..., N]."""
     if out_kind == "int32":
         return acc
     dev = acc.device
-    y = acc.to(torch.float32) * (_f32(in_scale, dev) * w_scale)
-    y = y + bias
+    y = dequantize_plain(acc, w_scale, bias, in_scale)
     if residual is not None:
         y = y + residual.to(torch.float32) * _f32(res_scale, dev)
     if relu:

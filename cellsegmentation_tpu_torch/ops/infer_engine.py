@@ -2,7 +2,9 @@
 
 - q8dg, the dense shared-stem chain: stem and layer1 once per image, then
   per tile layer2 as the folded-BN conv trunk with int8 activation
-  sandwiches and layers 3-4 as the int8 GEMM trunk of ops/q8_trunk.py;
+  sandwiches and layers 3-4 as the int8 GEMM trunk of ops/q8_trunk.py
+  (the default split; the JAX engine's others move the conv/GEMM seam,
+  (1, 0) through the hybrid entry);
 - q8d, the same dense front with layers 2-4 all in conv-land;
 - q8, per tile: the whole folded conv trunk over every tile;
 - q8g, per tile: stem and layer1 in conv-land, layers 2-4 as int8 GEMMs
@@ -65,8 +67,9 @@ from cellsegmentation_tpu_torch.ops.q8_trunk import (
     upload_q8_params,
 )
 
-# the conv/GEMM split: the encoder stage (block 0) where the int8 GEMMs start
-GEMM_FIRST_STAGE = 2
+# q8dg's conv/GEMM split: the (stage, block) where GEMM-land starts, the JAX
+# engine's default (layer2 in conv-land, layers 3-4 as int8 GEMMs)
+GEMM_FIRST_STAGE, GEMM_FIRST_BLOCK = 2, 0
 # per-tile q8's sandwich depths (the JAX package's conv backend): block
 # outputs in the first SANDWICH_STAGES stages, h1/h2 around the 3x3 in the
 # first INTRA_STAGES
@@ -436,11 +439,12 @@ def _device_stages(folded: FoldedTrunk, n_stages: int, device, fold_scale=None):
 
 
 def _gemm_land(folded: FoldedTrunk, scales: TrunkScales, span: int,
-               first_stage: int, w2_impl: str, device):
-    """(device params, metas) of the int8 GEMM trunk from ``first_stage``
-    on a ``span`` x ``span`` map."""
+               first_stage: int, first_block: int, w2_impl: str, device):
+    """(device params, metas) of the int8 GEMM trunk from block
+    (``first_stage``, ``first_block``) on a ``span`` x ``span`` map."""
     host_params, metas = build_q8_backend(folded, scales, span, span,
                                           first_stage=first_stage,
+                                          first_block=first_block,
                                           w2_impl=w2_impl)
     return upload_q8_params(host_params, device), metas
 
@@ -452,15 +456,19 @@ class DenseTileProbs:
 
     Stem + layer1 run once per image (ops/dense_frontend.py); each tile's
     /4 patch then runs the rest of the trunk. ``backend="gemm"`` (q8dg):
-    layer2 as bf16 convs with int8 sandwiches, layers 3-4 as int8 GEMMs
-    (ops/q8_trunk.py); ``backend="conv"`` (q8d): layers 2-4 as bf16 convs
-    with the conv-land sandwiches, pooled in bf16. ``fc_tile`` is read from
-    the model at every call, since stage 2 retrains the head between
-    sweeps."""
+    the blocks before (``gemm_first_stage``, ``gemm_first_block``) as bf16
+    convs with int8 sandwiches (conv-land), the rest as int8 GEMMs
+    (GEMM-land, ops/q8_trunk.py); the split (1, 0) is the hybrid entry,
+    which runs layer2 block 0's c1 and projection as convs on the
+    dequantized patches and enters GEMM-land after them.
+    ``backend="conv"`` (q8d): layers 2-4 as bf16 convs with the conv-land
+    sandwiches, pooled in bf16. ``fc_tile`` is read from the model at every
+    call, since stage 2 retrains the head between sweeps."""
 
     def __init__(self, model: MILNet, folded: FoldedTrunk, meta,
                  scales: TrunkScales, backend: str = "gemm",
-                 w2_impl: str = "auto"):
+                 w2_impl: str = "auto", gemm_first_stage: int = GEMM_FIRST_STAGE,
+                 gemm_first_block: int = GEMM_FIRST_BLOCK):
         dev = next(model.parameters()).device
         self.model = model
         self.meta = meta
@@ -469,49 +477,94 @@ class DenseTileProbs:
         self.backend = backend
         self.strides = tuple(folded.strides)
         self.s0 = float(scales.block_out[0][-1])
+        # conv-land's sandwiches: intra-block ones stop at INTRA_STAGES
+        self.conv_scales = conv_trunk_scales(scales)
+        stages = folded.stages
+        fs, fb = gemm_first_stage, gemm_first_block
+        self.hybrid = False
         if backend == "gemm":
+            # block len(stages[fs]) of stage fs is block 0 of the next one
+            if (not (1 <= fs < len(stages) and 0 <= fb <= len(stages[fs]))
+                    or (fs, fb) == (len(stages) - 1, len(stages[-1]))):
+                raise ValueError(f"no GEMM split at stage {fs}, block {fb} of a "
+                                 f"{[len(st) for st in stages]}-block trunk")
             self.scales = scales
-            n_conv = GEMM_FIRST_STAGE
-            # conv-land halves the /4 span at each stage's block0 (stride 2)
+            self.hybrid = (fs, fb) == (1, 0)
+            # conv-land: every block of stages 1..fs-1, then blocks 0..fb-1
+            # of stage fs; each stage's block 0 halves the /4 span (stride 2)
+            self.plan = ([(si, bi) for si in range(1, fs) for bi in range(len(stages[si]))]
+                         + [(fs, bi) for bi in range(fb)])
             span = meta.tile_size // 4
-            for _ in range(GEMM_FIRST_STAGE - 1):
+            for _ in range((fs - 1) + (1 if fb else 0)):
                 span = (span + 1) // 2
-            self.qparams, self.metas = _gemm_land(folded, scales, span,
-                                                  GEMM_FIRST_STAGE, w2_impl, dev)
+            self.qparams, self.metas = _gemm_land(folded, scales, span, fs, fb,
+                                                  w2_impl, dev)
+            n_conv = max(2, fs + (1 if fb else 0))
         else:
-            self.scales = conv_trunk_scales(scales)
-            n_conv = len(folded.stages)
+            self.scales = self.conv_scales
+            self.plan = [(si, bi) for si in range(1, len(stages))
+                         for bi in range(len(stages[si]))]
+            n_conv = len(stages)
+        # the patches' dequant scale folds into layer2 block 0's c1 and
+        # projection, except at the hybrid entry, which dequantizes them
         self.tree = (*_device_conv(folded.stem_w, folded.stem_b, dev),
-                     _device_stages(folded, n_conv, dev, fold_scale=self.s0))
+                     _device_stages(folded, n_conv, dev,
+                                    fold_scale=None if self.hybrid else self.s0))
 
     def _stem0(self, u8: torch.Tensor) -> torch.Tensor:
         flip0 = torch.zeros((u8.shape[0],), dtype=torch.int32, device=u8.device)
         x = normalize_images(u8, flip0, dtype=torch.bfloat16)
-        x1 = trunk_forward(self.tree, self.strides, x, self.scales, n_stages=1,
+        x1 = trunk_forward(self.tree, self.strides, x, self.conv_scales, n_stages=1,
                            kind=self.kind, groups=self.groups)
         return _q8(x1, self.s0)
+
+    def _hybrid_entry(self, patches: torch.Tensor, m0: int):
+        """Layer2 block 0's c1 (ReLU, int8 at its h1 scale) and projection
+        (int8 at its proj scale) as convs on the dequantized patches, each
+        flattened NHWC into the whole-tile [m0, px*C] layout."""
+        blk = self.tree[2][1][0]
+        x = _dq(patches, self.s0).permute(0, 3, 1, 2)
+        h1 = F.relu(_cv(x, blk[0], 1, 0) + blk[1])
+        # the projection's bias add stays in f32 into its quantize, as XLA
+        # fuses it in the JAX engine (a bf16 rounding between them flips
+        # ~6% of the int8 residual's LSBs against it)
+        pr = _cv(x, blk[6], self.strides[1], 0).float() + blk[7].float()
+        h1q = _q8(h1, self.scales.h1[1][0]).permute(0, 2, 3, 1).reshape(m0, -1)
+        prq = _q8(pr, self.scales.proj[1][0]).permute(0, 2, 3, 1).reshape(m0, -1)
+        return h1q, prq
+
+    def gemm_entry(self, patches: torch.Tensor) -> dict:
+        """q8dg's conv-land from the int8 patches [M, span, span, C] to
+        GEMM-land's entry, as ``q8_backend_forward``'s keywords: the int8
+        seam rows ``xq`` [M, px*C] (the plan's last block output quantized
+        and flattened NHWC into the whole-tile layout), or the hybrid
+        entry's ``first_h1`` / ``first_res``."""
+        m0 = patches.shape[0]
+        stages = self.tree[2]
+        if self.hybrid:
+            h1q, prq = self._hybrid_entry(patches, m0)
+            return dict(xq=None, first_h1=h1q, first_res=prq)
+        x = _blocks_forward(patches.to(torch.bfloat16).permute(0, 3, 1, 2),
+                            stages, self.strides, self.plan, self.conv_scales,
+                            self.kind, seam=True, groups=self.groups)
+        si, bi = self.plan[-1]
+        xq = _q8(x, self.scales.block_out[si][bi]).permute(0, 2, 3, 1)
+        return dict(xq=xq.reshape(m0, -1))
 
     @torch.no_grad()
     def __call__(self, images: torch.Tensor, flip: Optional[torch.Tensor]):
         g = images.shape[0]
         patches = frontend_patches(self.meta, self._stem0, images, flip)
-        m0 = patches.shape[0]
-        stages = self.tree[2]
-        plan = [(si, bi) for si in range(1, len(stages))
-                for bi in range(len(stages[si]))]
-        gemm = self.backend == "gemm"
-        x = _blocks_forward(patches.to(torch.bfloat16).permute(0, 3, 1, 2),
-                            stages, self.strides, plan, self.scales, self.kind,
-                            seam=gemm, groups=self.groups)
-        if gemm:
-            # conv/GEMM seam: quantize, flatten NHWC into whole-tile [N, px*C]
-            si, bi = plan[-1]
-            xq = _q8(x, self.scales.block_out[si][bi]).permute(0, 2, 3, 1)
-            feats = q8_backend_forward(self.qparams, self.metas, xq.reshape(m0, -1))
+        if self.backend == "gemm":
+            feats = q8_backend_forward(self.qparams, self.metas,
+                                       **self.gemm_entry(patches))
             last = self.metas[-1]
             logits = _head_logits_flat(self.model.fc_tile, feats,
                                        last.h_out * last.w_out)
         else:
+            x = _blocks_forward(patches.to(torch.bfloat16).permute(0, 3, 1, 2),
+                                self.tree[2], self.strides, self.plan, self.scales,
+                                self.kind, seam=False, groups=self.groups)
             logits = _head_logits(self.model.fc_tile, x.permute(0, 2, 3, 1))
         probs = torch.softmax(logits.float(), dim=-1)[:, 1]
         return unpermute_probs(self.meta, probs.reshape(g, -1), flip)
@@ -521,7 +574,8 @@ def make_dense_tile_probs(
     model: MILNet, tile_size: int, interval: int, hw: int,
     calib_tiles: np.ndarray, scales: Optional[TrunkScales] = None,
     w2_impl: str = "auto", backend: str = "gemm",
-    grouped_gemm: bool = False,
+    grouped_gemm: bool = False, gemm_first_stage: int = GEMM_FIRST_STAGE,
+    gemm_first_block: int = GEMM_FIRST_BLOCK,
 ) -> Optional[DenseTileProbs]:
     """Build the dense shared-stem sweep: ``backend="gemm"`` is q8dg, for a
     Bottleneck ResNet (a grouped one only with ``grouped_gemm``, the JAX
@@ -531,9 +585,10 @@ def make_dense_tile_probs(
     TrunkScales through it); ``w2_impl`` picks the GEMM trunk's 3x3 form
     (ops/q8_trunk.py ``W2_IMPLS``).
 
-    q8dg's conv/GEMM split is the JAX engine's default: layer2 in
-    conv-land, layers 3-4 (from stage ``GEMM_FIRST_STAGE``, block 0) as
-    int8 GEMMs."""
+    q8dg's conv/GEMM split is the JAX package's ``gemm_first_stage`` /
+    ``gemm_first_block`` arguments, with its defaults (``DenseTileProbs``
+    says what each split runs); a split the trunk has not raises
+    ``ValueError``."""
     folded = fold_tile_trunk(model)
     meta = dense_grid_meta(hw, tile_size, interval)
     if folded is None or meta is None or (backend == "gemm" and (
@@ -541,7 +596,8 @@ def make_dense_tile_probs(
         return None
     if scales is None:
         scales = calibrate_trunk(folded, np.asarray(calib_tiles, np.float32))
-    return DenseTileProbs(model, folded, meta, scales, backend, w2_impl)
+    return DenseTileProbs(model, folded, meta, scales, backend, w2_impl,
+                          gemm_first_stage, gemm_first_block)
 
 
 # ---------------------------------------------------------------------------
@@ -617,7 +673,7 @@ class TileGemmLogits:
         self.tree = (*_device_conv(folded.stem_w, folded.stem_b, dev),
                      _device_stages(folded, 1, dev))
         span = tile_size // 4  # stem s2 + maxpool s2
-        self.qparams, self.metas = _gemm_land(folded, scales, span, 1, w2_impl, dev)
+        self.qparams, self.metas = _gemm_land(folded, scales, span, 1, 0, w2_impl, dev)
 
     @torch.no_grad()
     def __call__(self, x: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,8 @@
-"""Stage-2 serving trunk (layers 3-4 on the q8dg path) as per-conv int8
-GEMMs on the whole-tile layout.
+"""Stage-2 serving trunk (GEMM-land: layers 3-4 on q8dg's default split,
+layers 2-4 on q8g's and q8dg's (1, *) splits) as per-conv int8 GEMMs on the
+whole-tile layout.
 
-At the 32x32-tile geometry layers 3-4 run on tiny maps (4/2/1 px a side).
+At the 32x32-tile geometry layers 2-4 run on tiny maps (8/4/2/1 px a side).
 Every activation is an int8 ``[N, px*C]`` row-major matrix (column
 ``(h*w_in + w)*C + c``); 1x1 convs are per-pixel GEMMs (``q8_matmul_px``),
 the strided projection reads a static pixel map, residual adds ride the
@@ -265,24 +266,40 @@ def upload_q8_params(params: List[dict], device) -> List[dict]:
 
 
 def q8_backend_forward(params: List[dict], metas: List[QBlockMeta],
-                       xq: torch.Tensor) -> torch.Tensor:
+                       xq: Optional[torch.Tensor], first_h1=None,
+                       first_res=None) -> torch.Tensor:
     """int8 block-input patches [N, px*C] in whole-tile layout (quantized
-    with the entry scale) -> bf16 final features [N, pxf*Cf]."""
-    for p, m in zip(params, metas):
+    with the entry scale) -> bf16 final features [N, pxf*Cf].
+
+    ``first_h1`` / ``first_res`` (the hybrid entry, given together): the
+    first block's 1x1 reduce and projection outputs computed outside
+    GEMM-land, int8 at its ``s_h1`` / ``s_res`` in the whole-tile layout.
+    The first block must have a projection; it then runs neither GEMM, and
+    ``xq`` may be None."""
+    if (first_h1 is None) != (first_res is None):
+        raise ValueError("first_h1 and first_res go together")
+    if first_h1 is not None and not metas[0].has_proj:
+        raise ValueError("the hybrid entry needs a first block with a projection")
+    if xq is None and first_h1 is None:
+        raise ValueError("q8_backend_forward needs xq or first_h1/first_res")
+    for i, (p, m) in enumerate(zip(params, metas)):
         px_in = m.h_in * m.w_in
         px_out = m.h_out * m.w_out
-        h1 = q8_matmul_px(
-            xq, p["w1"], p["b1"], p["s1"], px=px_in, c_in=m.c_in,
-            in_scale=m.s_in, out_scale=m.s_h1,
-        )
-        if m.has_proj:
-            res = q8_matmul_px(
-                xq, p["wp"], p["bp"], p["sp"], px=px_out, c_in=m.c_in,
-                px_map=(m.stride, m.w_in, m.w_out),
-                in_scale=m.s_in, out_scale=m.s_res, relu=False,
-            )
+        if i == 0 and first_h1 is not None:
+            h1, res = first_h1, first_res
         else:
-            res = xq
+            h1 = q8_matmul_px(
+                xq, p["w1"], p["b1"], p["s1"], px=px_in, c_in=m.c_in,
+                in_scale=m.s_in, out_scale=m.s_h1,
+            )
+            if m.has_proj:
+                res = q8_matmul_px(
+                    xq, p["wp"], p["bp"], p["sp"], px=px_out, c_in=m.c_in,
+                    px_map=(m.stride, m.w_in, m.w_out),
+                    in_scale=m.s_in, out_scale=m.s_res, relu=False,
+                )
+            else:
+                res = xq
         if m.w2_impl == "tap":
             h2 = q8_conv3_tap(
                 h1, p["w2"], p["b2"], p["s2"],

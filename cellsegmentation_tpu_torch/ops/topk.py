@@ -45,3 +45,9 @@ def adaptive_topk_mask(
     if valid is not None:
         mask = mask & valid
     return mask
+
+
+def topk_threshold_mask(probs, threshold: float):
+    """Tiles whose probability is above ``threshold``, on a tensor or a host
+    array (the stage-3 draw keeps prob > 0.95)."""
+    return probs > threshold

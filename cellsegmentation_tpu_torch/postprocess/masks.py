@@ -25,7 +25,9 @@ import shutil
 from typing import Optional, Sequence
 
 import numpy as np
+import torch
 
+from cellsegmentation_tpu_torch.ops.hsv import hsv_refine_mask
 from cellsegmentation_tpu_torch.postprocess.morphology import (
     remove_small_regions,
     remove_small_regions_batch,
@@ -54,19 +56,23 @@ def paint_tile_blocks(n_images: int, image_hw: tuple, groups: np.ndarray,
     return inc.cumsum(axis=1).cumsum(axis=2)[:, :h, :w] > 0
 
 
+def _value_refine(images: np.ndarray, masks: np.ndarray) -> np.ndarray:
+    """bool masks AND V <= 170 (ops/hsv.py), on the host arrays."""
+    return hsv_refine_mask(torch.from_numpy(np.ascontiguousarray(images)),
+                           torch.from_numpy(np.ascontiguousarray(masks))).numpy()
+
+
 def preprocess_masks(img: np.ndarray, mask: np.ndarray) -> np.ndarray:
     """One image's refinement: keep mask pixels with V <= 170, drop objects
     < 400 px, fill holes < 120 px. V is the channel max, so the channel
     order does not matter."""
-    refined = np.logical_and(mask.astype(bool), img.max(axis=-1) <= 170)
-    return remove_small_regions(refined, min_object_size=400,
+    return remove_small_regions(_value_refine(img, mask), min_object_size=400,
                                 hole_area_threshold=120)
 
 
 def preprocess_masks_batch(images: np.ndarray, masks: np.ndarray) -> np.ndarray:
     """[N,H,W,3] x [N,H,W] refinement, one native morphology call."""
-    refined = np.logical_and(masks.astype(bool), images.max(axis=-1) <= 170)
-    return remove_small_regions_batch(refined, 400, 120)
+    return remove_small_regions_batch(_value_refine(images, masks), 400, 120)
 
 
 def save_mask_pairs(output_path: str, rows: np.ndarray, images: np.ndarray,

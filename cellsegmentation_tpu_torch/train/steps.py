@@ -33,7 +33,8 @@ that does not fold. The step's ``resolved_engine`` names what runs.
 ``make_tile_train_step`` trains the tile head on selected tiles with the
 encoder frozen (BatchNorm on running statistics, no autograd graph through
 it), as the JAX package's stage-2 step does with ``freeze_encoder_stats``
-and its ``"tile"`` optimizer mask.
+and its ``"tile"`` optimizer mask. ``make_alternative_train_step``
+alternates it with the image step on one model, batch by batch.
 """
 
 from __future__ import annotations
@@ -48,6 +49,7 @@ from cellsegmentation_tpu_torch.models.milnet import MILNet
 from cellsegmentation_tpu_torch.ops.losses import count_weights, dice_coef
 from cellsegmentation_tpu_torch.ops.q8_trunk import W2_IMPLS
 from cellsegmentation_tpu_torch.ops.tiles import extract_tiles, tile_grid
+from cellsegmentation_tpu_torch.train.state import STAGE_TRAINABLE
 
 ENGINES = ("flax", "auto", "q8", "q8g", "q8d", "q8dg")
 # the per-tile engine a dense request falls back to off the /4 lattice
@@ -344,7 +346,8 @@ def dropout_generator(seed: int, step: int, device) -> torch.Generator:
 
 
 def make_image_train_step(model: MILNet, heads: str = "both",
-                          reg_loss: str = "mse", seed: int = 0, device=None):
+                          reg_loss: str = "mse", seed: int = 0, device=None,
+                          alpha: float = 1.0, beta: float = 1.0):
     """Stage-1 step over batches ``{images: u8 [B,H,W,3], flip, cls, reg,
     valid}`` (host or device arrays; ``valid`` masks the last batch's
     padding out of the loss, while the padded rows still take part in every
@@ -353,9 +356,9 @@ def make_image_train_step(model: MILNet, heads: str = "both",
     ``step(state, batch, dropout_masks=None, sd_masks=None) -> (state,
     metrics)``: the masked-mean losses ``loss_cls`` (CE), ``loss_reg``
     (MSE, or the reference's WeightedMSELoss with
-    ``reg_loss="weighted_mse"``) and ``loss = CE + MSE`` (the reference's
-    weights are 1 and 1) as device scalars; the gradient is taken of the
-    ``heads`` part alone. The state's optimizer holds the stage's
+    ``reg_loss="weighted_mse"``) and ``loss = alpha * CE + beta * MSE``
+    (the reference's weights are 1 and 1) as device scalars; the gradient
+    is taken of the ``heads`` part alone. The state's optimizer holds the stage's
     partitions (``"image"``, ``"image_cls"`` or ``"image_reg"``,
     train/state.py); a frozen head still runs in train mode and updates its
     BatchNorm statistics. Dropout masks come from ``dropout_generator(seed, state.step)`` unless
@@ -384,7 +387,7 @@ def make_image_train_step(model: MILNet, heads: str = "both",
         if reg_loss == "weighted_mse":
             se_each = count_weights(targets) * se_each
         se = _masked_mean(se_each, b["valid"])
-        loss = {"both": ce + se, "cls": ce, "reg": se}[heads]
+        loss = {"both": alpha * ce + beta * se, "cls": alpha * ce, "reg": beta * se}[heads]
         return loss, ce, se
 
     def step(state, batch, dropout_masks=None, sd_masks=None):
@@ -393,9 +396,49 @@ def make_image_train_step(model: MILNet, heads: str = "both",
         loss.backward()
         state.apply_gradients()
         ce, se = ce.detach(), se.detach()
-        return state, {"loss_cls": ce, "loss_reg": se, "loss": ce + se}
+        return state, {"loss_cls": ce, "loss_reg": se, "loss": alpha * ce + beta * se}
 
     step.loss_fn = loss_fn
+    return step
+
+
+_TILE_OF_ALTERNATIVE = {"img_idx": "img_idx", "xs": "xs", "ys": "ys", "flip": "tflip",
+                        "label": "tlabel", "valid": "tvalid"}
+
+
+def make_alternative_train_step(model: MILNet, tile_size: int, alpha: float = 1.0,
+                                beta: float = 1.0, seed: int = 0, device=None):
+    """Per-batch alternation on one model: a tile CE update of ``fc_tile``
+    (``make_tile_train_step``), then an image CE + MSE update of the
+    encoder and the image heads (``make_image_train_step`` with ``alpha`` /
+    ``beta``), so the image pass reads the parameters the tile pass wrote.
+    The JAX package keeps it beside its stage steps, unused by its CLIs.
+
+    ``step(tile_state, image_state, images_dev, batch, dropout_masks=None)
+    -> (tile_state, image_state, metrics)``: the states are
+    ``create_train_state(model, "tile", ...)`` and ``(model, "image",
+    ...)``, each with its own optimizer and step count; ``batch`` holds the
+    image keys ``{images, flip, cls, reg, valid}`` and the tile selection
+    ``{img_idx, xs, ys, tflip, tlabel, tvalid}`` into the uint8 stack
+    ``images_dev``. Dropout masks come from ``dropout_generator(seed,
+    image_state.step)`` unless given. The metrics are the tile step's and
+    the image step's, the image ``loss`` last."""
+    tile_step = make_tile_train_step(model, tile_size, device)
+    image_step = make_image_train_step(model, seed=seed, device=device, alpha=alpha,
+                                       beta=beta)
+    both = (*STAGE_TRAINABLE["tile"], *STAGE_TRAINABLE["image"])
+
+    def step(tile_state, image_state, images_dev, batch, dropout_masks=None):
+        # each optimizer holds its own partitions; the other's parameters
+        # need their gradients on too, the states' constructors set only
+        # their own
+        model.set_trainable(both)
+        tile_batch = {k: batch[v] for k, v in _TILE_OF_ALTERNATIVE.items()}
+        tile_state, tile_metrics = tile_step(tile_state, images_dev, tile_batch)
+        image_batch = {k: batch[k] for k in _IMAGE_KEYS}
+        image_state, image_metrics = image_step(image_state, image_batch, dropout_masks)
+        return tile_state, image_state, {**tile_metrics, **image_metrics}
+
     return step
 
 

@@ -10,7 +10,9 @@ comes with the ``parallel/`` slice of the port.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import os
 import time
 import warnings
 from typing import Optional
@@ -25,6 +27,7 @@ from cellsegmentation_tpu_torch.evaluate import evaluate_image, evaluate_tile
 from cellsegmentation_tpu_torch.models.milnet import MILNet
 from cellsegmentation_tpu_torch.ops.infer_engine import pick_calib_images
 from cellsegmentation_tpu_torch.ops.tiles import tile_grid
+from cellsegmentation_tpu_torch.ops.topk import topk_threshold_mask
 from cellsegmentation_tpu_torch.train.checkpoint import save_checkpoint
 from cellsegmentation_tpu_torch.train.schedules import make_schedule
 from cellsegmentation_tpu_torch.train.state import TrainState, create_train_state
@@ -37,6 +40,7 @@ from cellsegmentation_tpu_torch.train.steps import (
     make_tile_train_step,
 )
 from cellsegmentation_tpu_torch.utils.logging import RunLogger
+from cellsegmentation_tpu_torch.utils.profiling import trace
 
 
 @dataclasses.dataclass
@@ -185,15 +189,19 @@ def train_stage1(
             t0 = time.perf_counter()
             pipe = _MetricsPipe()
             cls_labels = train_source.cls_labels  # after any resampling
-            for sel, valid in it:
-                batch = {"images": train_source.gather_images(sel),
-                         "flip": train_source.flip_code[sel],
-                         "cls": cls_labels[sel],
-                         "reg": train_source.labels[sel].astype(np.float32),
-                         "valid": valid}
-                state, metrics = step_fn(state, batch)
-                pipe.push(metrics)
-            means = pipe.means()  # waits for the last step
+            # CST_PROFILE=1 records a torch.profiler trace of the first epoch
+            prof = (trace(os.path.join(output_dir or ".", "profile"))
+                    if epoch == 1 + last_epoch else contextlib.nullcontext())
+            with prof:
+                for sel, valid in it:
+                    batch = {"images": train_source.gather_images(sel),
+                             "flip": train_source.flip_code[sel],
+                             "cls": cls_labels[sel],
+                             "reg": train_source.labels[sel].astype(np.float32),
+                             "valid": valid}
+                    state, metrics = step_fn(state, batch)
+                    pipe.push(metrics)
+                means = pipe.means()  # waits for the last step
             t1 = time.perf_counter()
             logger.info(
                 f"[stage1 epoch {epoch}/{epochs}] "
@@ -480,7 +488,7 @@ def draw_pseudo_masks(
         source, infer_tiles_fn, infer_image_fn, image_batch=image_batch,
         device=dev,
     ):
-        keep = (probs > threshold) & (counts != 0)[:, None]
+        keep = topk_threshold_mask(probs, threshold) & (counts != 0)[:, None]
         groups, tile_idx = np.nonzero(keep)
         kept_tiles += len(groups)
         kept_images += len(np.unique(groups))

@@ -35,6 +35,17 @@ seeded synthetic LYSTO images:
 5. rowtap: a sweep with the rowtap engine launches 9 q8_conv3_rowtap and
    20 q8_matmul_px per image batch (no q8_matmul, no q8_conv3_tap) and
    gives the auto sweep's probs;
+5a. variants: q8dg's conv/GEMM splits on the [slice] model, source and
+   calibration, built with ``make_dense_tile_probs``'s split keywords:
+   (2, 0), (1, 1) and (1, 0) ((1, 0) through the hybrid entry); each sweep
+   counted (1 / 8 / 20, 4 / 8 / 26 and 5 / 8 / 27 q8_conv3_tap / q8_matmul
+   / q8_matmul_px per batch), timed in turns with its peak memory, against
+   the CPU under q8dg's limits, and against (2, 0) on the card and the
+   exact graph under the split gates, which see a fault the card shares
+   with the CPU; every kernel call of one (1, 0) and one (1, 1) step
+   against its plain version, timed as in [kernels]; two planted faults
+   ((1, 0) on the folded pair, (1, 1)'s seam at twice its scale) that the
+   split gates alone must reject;
 6. train: ``train_stage2``, 2 epochs of the MIL cycle, once per 3x3 form:
    the same selections and the same ``fc_tile``; the train step timed at
    the CLI's 40,960-tile batch; one train step on the card against the
@@ -49,6 +60,11 @@ seeded synthetic LYSTO images:
    scaled by keep, flips dropped) that this gate must reject; the pt1
    checkpoint loaded into a fresh model (equal state, bit-equal counts)
    and a q8dg sweep batch on its encoder; a profile of one train step;
+7a. alternative: ``make_alternative_train_step`` on ResNet-50 (a tile CE
+   update, then an image CE + MSE update, on one model), 3 steps on the
+   card, then one f32 step card vs CPU on the stage-1 gate's images and 64
+   of their tiles, and a planted fault (the image half reading the
+   parameters from before the tile update) that this gate must reject;
 8. stage3: ``draw_pseudo_masks`` as the ``train_seg`` CLI calls it (engine
    "auto", which must resolve to per-tile q8 on the 16/5 grid; image batch
    128; threshold 0.95) on 128 images, counted: no hand-written kernel is
@@ -117,8 +133,9 @@ seeded synthetic LYSTO images:
    step with depthwise convs and the squeeze-excite apart;
 15. profile: device time by kernel over one sweep step: 29 launches of the
    wgmma kernel under its own name and no other hand-written kernel;
-16. one JSON line with every kernel's launches and times (the q8g path's
-   and each ResNeXt's kernels as entries of their own, ``"path"``);
+16. one JSON line with every kernel's launches and times (the q8g path's,
+   q8dg's (1, 0) and (1, 1) splits' and each ResNeXt's kernels as entries
+   of their own, ``"path"``);
 17. last line: {"ok": true, "device": {...}}.
 
 Run from the repository root: ``python3 chip_smoke.py`` (one card). Exits
@@ -184,6 +201,28 @@ SWEEP_REPEATS = 4
 # tests/test_torch_port_serve.py)
 Q8G_LAUNCHES = {"q8_matmul": 8, "q8_matmul_px": 29, "q8_conv3_tap": 5,
                 "q8_conv3_rowtap": 0}
+# [variants]: q8dg's conv/GEMM splits (make_dense_tile_probs keywords),
+# each with its launches per sweep step as (q8_conv3_tap, q8_matmul,
+# q8_matmul_px), the JAX package's counts (tests/test_torch_port_dense_variants.py):
+# the (1, 1) and (1, 0) splits move layer 2's blocks into GEMM-land
+VARIANTS = {
+    "2,0": ({}, (1, 8, 20)),
+    "1,1": (dict(gemm_first_stage=1, gemm_first_block=1), (4, 8, 26)),
+    "1,0": (dict(gemm_first_stage=1, gemm_first_block=0), (5, 8, 27)),
+}
+# the split gates, which see a plan error that the card shares with the CPU
+# port: each split's log-odds against (2, 0)'s on the card (the same
+# weights and scales, int8 points moved; max, mean, per-image rank
+# correlation) and against the exact graph's (mean). Set from the splits'
+# first card readings (vs (2, 0) max 0.0217-0.0226, mean 0.0060-0.0062,
+# rank 0.673-0.683; vs exact 0.0458-0.0461): a doubled gap fails the mean
+SPLIT_VS_20_MAX, SPLIT_VS_20_MEAN, SPLIT_VS_20_RANK = 0.04, 0.01, 0.5
+SPLIT_EXACT_MEAN = 0.06
+# [alternative]: make_alternative_train_step on ResNet-50, ALT_STEPS steps on
+# the card (Adam), then one f32 SGD step card vs CPU on the stage-1 gate's 8
+# images and ALT_TILES tiles of them, under the S1_* limits (the fc_tile
+# update held like the encoder's)
+ALT_STEPS, ALT_TILES = 3, 64
 # [kernels-resnext], [resnext], [ensemble]: the two ResNeXts, 32 groups
 RESNEXTS = ("resnext50_32x4d", "resnext101_32x8d")
 RESNEXT_GROUPS = 32
@@ -953,6 +992,294 @@ def phase_rowtap(args, card, step, step_row, src, probs_auto, auto_ips):
           f"{auto_ips:.1f}) on {card}; probs vs the auto sweep max |diff| {dp}")
     check(np.array_equal(probs, probs_auto), f"rowtap sweep probs differ by {dp}")
     return launches
+
+
+def _dense_step(engine, dev):
+    """A DenseTileProbs as a sweep step: ``(images u8, flip) -> probs``,
+    flip-free batches without selects, as make_tile_infer_step wraps it."""
+    import numpy as np
+    import torch
+
+    @torch.no_grad()
+    def infer(images, flip):
+        f = np.asarray(flip)
+        imgs = torch.as_tensor(np.asarray(images)).to(dev)
+        return engine(imgs, torch.as_tensor(f).to(dev) if f.any() else None)
+
+    return infer
+
+
+@contextlib.contextmanager
+def _planted_split_fault(fault, engines):
+    """``"(1, 0) on the folded pair"`` (the hybrid entry's c1 and
+    projection with the patches' dequant scale folded in, which it applies
+    again: (2, 0)'s conv-land tree) or ``"(1, 1) seam at twice its
+    scale"`` (the conv/GEMM seam quantized at 2 x block_out[1][0], which
+    GEMM-land dequantizes at the calibrated scale)."""
+    import dataclasses
+
+    if fault.startswith("(1, 0)"):
+        eng, attr = engines["1,0"], "tree"
+        planted = engines["2,0"].tree
+    else:
+        eng, attr = engines["1,1"], "scales"
+        block_out = [list(b) for b in eng.scales.block_out]
+        block_out[1][0] *= 2.0
+        planted = dataclasses.replace(eng.scales, block_out=block_out)
+    orig = getattr(eng, attr)
+    setattr(eng, attr, planted)
+    try:
+        yield
+    finally:
+        setattr(eng, attr, orig)
+
+
+def phase_variants(args, card, model, step, src, ref):
+    """q8dg's conv/GEMM splits on the [slice] model, source and
+    calibration: (2, 0), (1, 1) and (1, 0). Each sweep counted, timed in
+    turns, with its peak memory, against the CPU, (2, 0) and the exact
+    graph; every kernel call of one (1, 0) and one (1, 1) step against its
+    plain version, timed; two planted faults."""
+    import numpy as np
+    import torch
+
+    from cellsegmentation_tpu_torch.kernels import q8_gemm as tq
+    from cellsegmentation_tpu_torch.ops.infer_engine import make_dense_tile_probs
+
+    t_phase = time.perf_counter()
+    n_batches = math.ceil(len(src) / args.image_batch)
+    scales = step.engine.scales
+
+    def build(mdl, kw):
+        return make_dense_tile_probs(mdl, args.tile, args.interval, args.hw, None,
+                                     scales=scales, **kw)
+
+    engines = {name: build(model, kw) for name, (kw, _) in VARIANTS.items()}
+    check(engines["1,0"].hybrid, "the hybrid entry did not engage")
+    steps = {name: _dense_step(e, "cuda") for name, e in engines.items()}
+    launches, peak, probs = {}, {}, {}
+    for name, (_, want) in VARIANTS.items():
+        _warm_flips(steps[name], src, args.image_batch)
+        tq.reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        probs[name], _ = _sweep(src, steps[name], args)
+        peak[name] = torch.cuda.max_memory_allocated()
+        launches[name] = {fn.__name__: fn.launches for fn in tq.KERNELS}
+        got = tuple(launches[name][k] for k in ("q8_conv3_tap", "q8_matmul", "q8_matmul_px"))
+        check(got == tuple(n_batches * w for w in want) and not launches[name]["q8_conv3_rowtap"],
+              f"{name}: launches {launches[name]}, want {want} x {n_batches}")
+        check(probs[name].shape == (len(src), 225) and bool(np.isfinite(probs[name]).all()),
+              f"{name} probs {probs[name].shape}")
+    passes = {name: [] for name in VARIANTS}
+    for i in range(SWEEP_REPEATS):
+        for name in (list(passes) if i % 2 == 0 else list(reversed(passes))):
+            passes[name].append(_sweep(src, steps[name], args)[1])
+    ips = {k: len(src) / float(np.median(v)) for k, v in passes.items()}
+    for name in VARIANTS:
+        print(f"[variants] q8dg {name}: {ips[name]:.1f} images/s (median of "
+              f"{[round(x, 4) for x in passes[name]]} s), peak memory "
+              f"{peak[name] / 2**30:.2f} GiB, launches over {n_batches} image batches "
+              f"{launches[name]}")
+    print(f"[variants] sweeps at 299/32/20, image batch {args.image_batch}, in turns on "
+          f"{card}; fastest: {max(ips, key=ips.get)}")
+
+    # each split against the port on the CPU (q8dg's limits) and, in the
+    # split gates, against (2, 0) on the card and the exact graph; then the
+    # planted faults, which the split gates alone must reject
+    imgs, flip = ref["images"], ref["flip"]
+    cpu_lo = {name: _logodds(_dense_step(build(ref["cpu_model"], kw), "cpu")(imgs, flip)
+                             .numpy()) for name, (kw, _) in VARIANTS.items()}
+    base_lo = _logodds(steps["2,0"](imgs, flip).cpu().numpy())
+
+    def gates(name, lg):
+        mx, mean, rank, ok_cpu = _gate(lg, cpu_lo[name])
+        e_g, e_c = np.abs(ref["exact_card"] - lg), np.abs(ref["exact_cpu"] - cpu_lo[name])
+        ok_cpu = (ok_cpu and e_g.mean() <= Q8DG_EXACT_MEAN
+                  and e_g.mean() <= e_c.mean() + CARD_CPU_MEAN)
+        b_mx, b_mean, b_rank, ok_split = _gate(lg, base_lo, SPLIT_VS_20_MAX,
+                                               SPLIT_VS_20_MEAN, SPLIT_VS_20_RANK)
+        ok_split = ok_split and e_g.mean() <= SPLIT_EXACT_MEAN
+        text = (f"card vs CPU max {mx:.5f} mean {mean:.6f} rank {min(rank):.4f}; vs exact "
+                f"card mean {e_g.mean():.6f} (CPU {e_c.mean():.6f}); vs (2,0) max "
+                f"{b_mx:.5f} mean {b_mean:.6f} rank {min(b_rank):.4f}")
+        return ok_cpu, ok_split, text
+
+    limits = (f"limits vs CPU {CARD_CPU_MAX} / {CARD_CPU_MEAN} / {MIN_RANK_CORR}, exact "
+              f"mean <= {Q8DG_EXACT_MEAN} and <= CPU + {CARD_CPU_MEAN}; split gates vs "
+              f"(2,0) {SPLIT_VS_20_MAX} / {SPLIT_VS_20_MEAN} / {SPLIT_VS_20_RANK}, exact "
+              f"mean <= {SPLIT_EXACT_MEAN}")
+    for name in VARIANTS:
+        ok_cpu, ok_split, text = gates(name, _logodds(steps[name](imgs, flip).cpu().numpy()))
+        print(f"[variants] q8dg {name} log-odds: {text} ({limits})")
+        check(ok_cpu and ok_split, f"q8dg {name} fails its gates: {text}")
+    for fault, name in (("(1, 0) on the folded pair", "1,0"),
+                        ("(1, 1) seam at twice its scale", "1,1")):
+        with _planted_split_fault(fault, engines):
+            ok_cpu, ok_split, text = gates(name, _logodds(steps[name](imgs, flip)
+                                                          .cpu().numpy()))
+        print(f"[variants] planted fault ({fault}): {text}: vs CPU "
+              f"{'passes' if ok_cpu else 'rejected'}, split gates "
+              f"{'pass' if ok_split else 'reject'}")
+        check(not ok_split, f"the split gates pass a planted fault: {fault}")
+
+    # every kernel call of one (1, 0) and one (1, 1) step: each against its
+    # plain version, each distinct call timed once, weighted by its count
+    batch = torch.as_tensor(src.images[: args.image_batch]).cuda()
+    stats = {}
+    for name in ("1,0", "1,1"):
+        calls = _capture_calls(lambda: engines[name](batch, None))
+        want = VARIANTS[name][1]
+        got = tuple(sum(c[0] is fn for c in calls)
+                    for fn in (tq.q8_conv3_tap, tq.q8_matmul, tq.q8_matmul_px))
+        check(got == want, f"{name} step calls {got}, want {want}")
+        for fn, a, kw in calls:
+            check(torch.equal(fn(*a, **kw), tq.PLAIN[fn](*a, **kw)),
+                  f"{name}: {fn.__name__} differs from its plain version")
+        distinct, counts, _ = _distinct_calls(calls)
+        stats[name], _ = _measure_calls(distinct, f"variants {name}", repeat=counts)
+        _print_stats(stats[name], f"variants {name}")
+    print(f"[variants] phase {time.perf_counter() - t_phase:.1f} s")
+    return stats, launches
+
+
+def _alt_batch(train, pick, rng):
+    """The stage-1 batch of ``pick`` and ALT_TILES tiles of those images
+    (indices into the batch's own images), every flip code, both labels."""
+    import numpy as np
+
+    b = _stage1_batch(train, pick)
+    hw = b["images"].shape[1]
+    b.update(img_idx=rng.integers(0, len(pick), ALT_TILES).astype(np.int32),
+             xs=rng.integers(0, hw - 32 + 1, ALT_TILES).astype(np.int32),
+             ys=rng.integers(0, hw - 32 + 1, ALT_TILES).astype(np.int32),
+             tflip=(np.arange(ALT_TILES) % 4).astype(np.int32),
+             tlabel=(np.arange(ALT_TILES) % 2).astype(np.int32),
+             tvalid=np.ones(ALT_TILES, bool))
+    return b
+
+
+def alt_step_reading(model, batch, masks, dev, fault=False):
+    """One make_alternative_train_step update (SGD at S1_CHECK_LR on both
+    partitions) under the injected dropout ``masks``: (image loss, running
+    statistics, fc_tile's update, the other parameters' update), f64 CPU.
+    ``fault`` plants the image half reading the parameters as they were
+    before the tile update."""
+    import torch
+
+    from cellsegmentation_tpu_torch.train import steps
+    from cellsegmentation_tpu_torch.train.schedules import make_schedule
+    from cellsegmentation_tpu_torch.train.state import create_train_state
+
+    sched = make_schedule(None, S1_CHECK_LR, 1, 1)
+    tile_state = create_train_state(model, "tile", sched, use_sgd=True, device=dev)
+    image_state = create_train_state(model, "image", sched, use_sgd=True, device=dev)
+    snapshot = copy.deepcopy(model.state_dict())
+    orig = steps.make_image_train_step
+    if fault:
+        def stale(mdl, **kw):
+            inner = orig(mdl, **kw)
+
+            def image_step(state, b, dropout_masks=None, sd_masks=None):
+                mdl.load_state_dict(snapshot)
+                return inner(state, b, dropout_masks, sd_masks)
+            return image_step
+
+        steps.make_image_train_step = stale
+    try:
+        step = steps.make_alternative_train_step(model, 32, device=dev)
+    finally:
+        steps.make_image_train_step = orig
+    masks = {k: tuple(m.to(dev) for m in v) for k, v in masks.items()}
+    images_dev = torch.as_tensor(batch["images"]).to(dev)
+    _, _, metrics = step(tile_state, image_state, images_dev, batch, dropout_masks=masks)
+    after = model.state_dict()
+    stats = {k: v.double().cpu() for k, v in after.items() if "running_" in k}
+
+    def update(keep):
+        return torch.cat([(after[k].double() - snapshot[k].double()).cpu().flatten()
+                          for k, p in model.named_parameters() if keep(k)])
+
+    return (float(metrics["loss"]), stats, update(lambda k: k.startswith("fc_tile")),
+            update(lambda k: k.split(".")[0] in ("encoder", "fc_image_cls", "fc_image_reg")))
+
+
+def alt_step_gap(got, want):
+    """(loss rel, statistics gap, fc_tile update gap, the rest's update gap,
+    within the S1_* limits) of an alt_step_reading against the reference."""
+    (lg, sg, tg, ug), (lc, sc, tc, uc) = got, want
+    rel = abs(lg - lc) / abs(lc)
+    stat = max(float((sg[k] - sc[k]).abs().max()) / _stat_scale(sc, k) for k in sc)
+    tile = float((tg - tc).abs().max() / tc.abs().max())
+    rest = float((ug - uc).abs().max() / uc.abs().max())
+    ok = (rel <= S1_LOSS_RTOL and stat <= S1_STAT_RTOL and tile <= S1_WEIGHT_RTOL
+          and rest <= S1_WEIGHT_RTOL)
+    return rel, stat, tile, rest, ok
+
+
+def phase_alternative(args, card):
+    """make_alternative_train_step on ResNet-50: ALT_STEPS steps on the
+    card, then one f32 step card vs CPU and its planted fault."""
+    import numpy as np
+    import torch
+
+    from cellsegmentation_tpu_torch.core.dtypes import F32_POLICY
+    from cellsegmentation_tpu_torch.models import build_model
+    from cellsegmentation_tpu_torch.train.schedules import make_schedule
+    from cellsegmentation_tpu_torch.train.state import create_train_state
+    from cellsegmentation_tpu_torch.train.steps import make_alternative_train_step
+
+    t_phase = time.perf_counter()
+    train, _ = _stage1_sources(args)
+    pick = np.asarray([0, 58, 116, 174, 1, 59, 117, 175])[:S1_CHECK_IMAGES]
+    batch = _alt_batch(train, pick, np.random.default_rng(args.seed))
+    model = build_model("resnet50", device="cuda", seed=args.seed)
+    sched = make_schedule(None, STAGE1_LR, 1, 1)
+    tile_state = create_train_state(model, "tile", sched, device="cuda")
+    image_state = create_train_state(model, "image", sched, device="cuda")
+    step = make_alternative_train_step(model, 32, seed=args.seed, device="cuda")
+    images_dev = torch.as_tensor(batch["images"]).cuda()
+    fc0 = model.fc_tile[1].weight.detach().clone()
+    enc0 = model.encoder.conv1.weight.detach().clone()
+    secs, losses = [], []
+    for _ in range(ALT_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tile_state, image_state, m = step(tile_state, image_state, images_dev, batch)
+        losses.append(float(m["loss"]))
+        secs.append(time.perf_counter() - t0)
+    check(all(math.isfinite(x) for x in losses), f"alternative step losses {losses}")
+    check(tile_state.step == image_state.step == ALT_STEPS, "alternative step counts")
+    check(not torch.equal(model.fc_tile[1].weight, fc0)
+          and not torch.equal(model.encoder.conv1.weight, enc0),
+          "the alternation left fc_tile or the encoder unchanged")
+    print(f"[alternative] {ALT_STEPS} steps (Adam, {len(pick)} images + {ALT_TILES} tiles) "
+          f"on {card}: losses {[round(x, 4) for x in losses]}, "
+          f"{[round(s, 4) for s in secs]} s")
+
+    cpu_model = build_model("resnet50", policy=F32_POLICY, device="cpu", seed=args.seed)
+    gen = torch.Generator().manual_seed(args.seed)
+    masks = {k: getattr(cpu_model, k).draw_masks(len(pick), gen)
+             for k in ("fc_image_cls", "fc_image_reg")}
+    t0 = time.perf_counter()
+    cpu = alt_step_reading(cpu_model, batch, masks, "cpu")
+    cpu_s = time.perf_counter() - t0
+    readings = {}
+    for fault in (False, True):
+        m = build_model("resnet50", policy=F32_POLICY, device="cuda", seed=args.seed)
+        readings[fault] = alt_step_gap(alt_step_reading(m, batch, masks, "cuda", fault), cpu)
+    rel, stat, tile, rest, ok = readings[False]
+    limits = (f"limits rel {S1_LOSS_RTOL}, stat {S1_STAT_RTOL}, updates {S1_WEIGHT_RTOL}")
+    print(f"[alternative] one f32 step card vs CPU ({cpu_s:.1f} s on the CPU): image loss "
+          f"{cpu[0]:.6f}, rel {rel:.2e}; statistics {stat:.2e}; fc_tile update gap "
+          f"{tile:.2e}; encoder and image heads update gap {rest:.2e} ({limits})")
+    rel, stat, tile, rest, bad_ok = readings[True]
+    print(f"[alternative] planted fault (the image half reads the parameters from before "
+          f"the tile update): rel {rel:.2e}, statistics {stat:.2e}, fc_tile {tile:.2e}, "
+          f"rest {rest:.2e}: {'passes' if bad_ok else 'rejected'}")
+    check(ok, "the alternative step card vs CPU is outside the limits")
+    check(not bad_ok, "the alternative-step gate passes its planted fault")
+    print(f"[alternative] phase {time.perf_counter() - t_phase:.1f} s")
 
 
 def _train_step_on(model, src, batch, dev):
@@ -3294,11 +3621,17 @@ def main(argv=None) -> int:
         row_launches = phase_rowtap(args, card, step, step_row, src, probs_auto,
                                     auto_ips)
 
+        phase = "variants"
+        stats_var, launches_var = phase_variants(args, card, model, step, src, ref)
+
         phase = "train"
         phase_train(args, card, base, src)
 
         phase = "stage1"
         phase_stage1(args, card, src, slice_gap)
+
+        phase = "alternative"
+        phase_alternative(args, card)
 
         phase = "stage3"
         pt3 = phase_stage3(args, card)
@@ -3349,6 +3682,14 @@ def main(argv=None) -> int:
                             cudnn_ms=stats_q8g[fn]["cudnn_ms"] if fn is tq.q8_conv3_tap
                             else None)
                 for fn in tq.KERNELS if launches_q8g[fn.__name__]]
+    # q8dg's (1, 0) and (1, 1) splits: their counted sweeps and the calls of
+    # one step each in [variants]
+    for name in ("1,0", "1,1"):
+        kernels += [_kernel_row(fn, stats_var[name][fn], launches_var[name][fn.__name__],
+                                path=f"q8dg {name}",
+                                cudnn_ms=stats_var[name][fn]["cudnn_ms"]
+                                if fn is tq.q8_conv3_tap else None)
+                    for fn in tq.KERNELS if launches_var[name][fn.__name__]]
     # each ResNeXt's q8g: ResNeXt-50's counted sweep in [resnext], the 101's
     # counted step in [kernels-resnext] (rowtap: the rowtap form's counted
     # step there); the 3x3s' grouped bound and cuDNN's bf16 grouped conv
