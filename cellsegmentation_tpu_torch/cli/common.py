@@ -4,6 +4,14 @@ checkpoint setup.
 The CLIs run on the CUDA card (``-d`` picks its index) and raise without
 one. ``CST_PLATFORM=cpu``, the JAX package's own override variable, runs
 them on the CPU instead.
+
+Importing this module joins the process group the environment names
+(``parallel.multihost.maybe_initialize``: ``CST_COORDINATOR_ADDRESS`` +
+``CST_NUM_PROCESSES`` + ``CST_PROCESS_ID``, or ``CST_AUTO_DISTRIBUTED=1``
+under torchrun), as the JAX package's CLIs do, so every stage CLI runs
+unchanged as one rank of a multi-process job: a rank takes the card
+``local rank % device count`` (its place among the ranks of its host; rank
+r's on one host), and the trainers reduce over every rank.
 """
 
 from __future__ import annotations
@@ -17,7 +25,14 @@ from cellsegmentation_tpu_torch.core.config import load_data_path
 from cellsegmentation_tpu_torch.core.device import resolve_device
 from cellsegmentation_tpu_torch.core.dtypes import DEFAULT_POLICY, F32_POLICY
 from cellsegmentation_tpu_torch.models import build_model
+from cellsegmentation_tpu_torch.parallel.multihost import (
+    local_rank,
+    maybe_initialize,
+    process_count,
+)
 from cellsegmentation_tpu_torch.train import checkpoint as ckpt_mod
+
+maybe_initialize()
 
 
 def add_common_args(parser: argparse.ArgumentParser, default_epochs: int,
@@ -35,7 +50,8 @@ def add_common_args(parser: argparse.ArgumentParser, default_epochs: int,
     parser.add_argument("--test_every", type=int, default=1)
     add_device_arg(parser)
     parser.add_argument("--distributed", action="store_true",
-                        help="kept for parity; one process on one card")
+                        help="kept for parity; data parallelism follows the "
+                             "CST_* process-group variables")
     parser.add_argument("-o", "--output", type=str, default="./output")
     parser.add_argument("--debug", action="store_true", help="use only 100 images")
     parser.add_argument("--seed", type=int, default=42)
@@ -50,12 +66,16 @@ def add_device_arg(parser: argparse.ArgumentParser) -> None:
 
 
 def device_of(args) -> torch.device:
-    """The card ``-d`` names, or the CPU under ``CST_PLATFORM=cpu``."""
+    """The card ``-d`` names (across processes, the card ``local rank %
+    device count``: rank r's on one host), or the CPU under
+    ``CST_PLATFORM=cpu``."""
     if os.environ.get("CST_PLATFORM") == "cpu":
         return torch.device("cpu")
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; set CST_PLATFORM=cpu "
                            "to run on the CPU")
+    if process_count() > 1:
+        return resolve_device(f"cuda:{local_rank() % torch.cuda.device_count()}")
     return resolve_device(f"cuda:{args.device}")
 
 

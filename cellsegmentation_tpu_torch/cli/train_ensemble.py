@@ -39,8 +39,9 @@ def build_parser() -> argparse.ArgumentParser:
 def train_folds(ensemble: EnsembleSource, args, logger: RunLogger, device) -> list:
     """The CLI's work on a built ``EnsembleSource``: for each fold from
     ``args.start_fold``, a fresh model seeded ``args.seed + fold`` on
-    ``device`` trained by ``train_stage1(heads="reg")`` for ``args.epochs``,
-    its checkpoint written under ``args.output``. Returns the paths."""
+    ``device`` trained by ``train_stage1(heads="reg")`` for ``args.epochs``
+    (over every rank of the process group), its checkpoint written under
+    ``args.output``. Returns the paths."""
     paths = []
     for fold in range(args.start_fold, args.kfold):
         train_view, val_view = ensemble.fold(fold)

@@ -7,8 +7,13 @@ scalars per image for stage 1, one [N, T] prob matrix for stages 2 and
 images never leave the device. Each loop is
 a 2-deep software pipeline: CUDA work is asynchronous, so batch i+1's upload
 and compute are queued before batch i's probs are fetched, and the blocking
-fetch overlaps the device's next batch. Single-process: the multi-host
-split comes with the ``parallel/`` slice of the port.
+fetch overlaps the device's next batch.
+
+Across processes (parallel/multihost.py) each rank sweeps a round-robin
+share of the batches (``my_batches``) and the rows are merged at the end
+(``merge_process_rows``), so every rank returns the whole result. The
+steps must be process-local, with no collective: ranks take different
+numbers of batches, so a collective there would deadlock.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from cellsegmentation_tpu_torch.data.batches import BatchIterator
 from cellsegmentation_tpu_torch.ops.categorize import categorize_np, de_categorize_np
 from cellsegmentation_tpu_torch.ops.tiles import tile_grid
 from cellsegmentation_tpu_torch.ops.topk import adaptive_topk_mask
+from cellsegmentation_tpu_torch.parallel.multihost import merge_process_rows, my_batches
 
 
 def pipeline2(items, dispatch):
@@ -37,6 +43,12 @@ def pipeline2(items, dispatch):
         pending = (item, res)
     if pending is not None:
         yield pending
+
+
+def _my_batches(n: int, batch_size: int):
+    """This process's round-robin share of the in-order batches over ``n``."""
+    batches = list(BatchIterator(n, batch_size, shuffle=False))
+    return [batches[b] for b in my_batches(len(batches))]
 
 
 def _clean_counts(regs: np.ndarray) -> np.ndarray:
@@ -72,16 +84,23 @@ def inference_image(source, infer_step, batch_size: int = 64,
     base_idx = getattr(source, "base_idx", np.arange(n))
     categories = np.zeros(n, dtype=np.int64)
     counts = np.zeros(n, dtype=np.int64)
+    idx_chunks, cat_chunks, cnt_chunks = [], [], []
 
     def dispatch(sv):
         sel, _ = sv
         return infer_step(source.images[base_idx[sel]], flip[sel])
 
-    batches = BatchIterator(n, batch_size, shuffle=False)
-    for (sel, valid), (d_probs, d_regs) in pipeline2(batches, dispatch):
+    for (sel, valid), (d_probs, d_regs) in pipeline2(_my_batches(n, batch_size),
+                                                     dispatch):
         keep = sel[valid]
-        categories[keep] = d_probs.argmax(dim=1).cpu().numpy()[valid]
-        counts[keep] = _clean_counts(d_regs.cpu().numpy()[valid])
+        cat = d_probs.argmax(dim=1).cpu().numpy()[valid]
+        cnt = _clean_counts(d_regs.cpu().numpy()[valid])
+        categories[keep] = cat
+        counts[keep] = cnt
+        idx_chunks.append(keep)
+        cat_chunks.append(cat)
+        cnt_chunks.append(cnt)
+    merge_process_rows([categories, counts], idx_chunks, [cat_chunks, cnt_chunks])
 
     if cls_limit:
         counts = apply_cls_limit(counts, categories)
@@ -105,6 +124,7 @@ def inference_tiles(
     flip = getattr(source, "flip_code", np.zeros(n, dtype=np.int32))
     base_idx = getattr(source, "base_idx", np.arange(n))
     out = np.zeros((n, n_t), dtype=np.float32)
+    idx_chunks, val_chunks = [], []
 
     def dispatch(sv):
         sel, _ = sv
@@ -112,9 +132,12 @@ def inference_tiles(
         # graph without flips after a cheap host check
         return infer_step(source.images[base_idx[sel]], flip[sel])
 
-    batches = BatchIterator(n, image_batch, shuffle=False)
-    for (sel, valid), d_probs in pipeline2(batches, dispatch):
-        out[sel[valid]] = d_probs.cpu().numpy()[valid]
+    for (sel, valid), d_probs in pipeline2(_my_batches(n, image_batch), dispatch):
+        vals = d_probs.cpu().numpy()[valid]
+        out[sel[valid]] = vals
+        idx_chunks.append(sel[valid])
+        val_chunks.append(vals)
+    merge_process_rows([out], idx_chunks, [val_chunks])
     return out
 
 
@@ -149,7 +172,8 @@ def iter_tiles_and_counts(source, tile_step, image_step, image_batch: int = 64,
     Each uint8 image batch crosses to ``device`` (the CUDA card unless
     ``device="cpu"``) once and serves both the tile step
     (``make_tile_infer_step``, given the host flip array for its flip-free
-    check) and the count head (``make_image_infer_step``)."""
+    check) and the count head (``make_image_infer_step``). Across processes
+    it yields this rank's round-robin share of the batches only."""
     dev = resolve_device(device)
     n = len(source)
     flip = getattr(source, "flip_code", np.zeros(n, dtype=np.int32))
@@ -162,10 +186,35 @@ def iter_tiles_and_counts(source, tile_step, image_step, image_batch: int = 64,
         _, regs = image_step(images, torch.as_tensor(flip[sel]).to(dev))
         return probs, regs
 
-    batches = BatchIterator(n, image_batch, shuffle=False)
-    for (sel, valid), (d_probs, d_regs) in pipeline2(batches, dispatch):
+    for (sel, valid), (d_probs, d_regs) in pipeline2(_my_batches(n, image_batch),
+                                                     dispatch):
         yield (sel[valid], d_probs.cpu().numpy()[valid],
                _clean_counts(d_regs.cpu().numpy()[valid]))
+
+
+def inference_tiles_and_counts(source, tile_step, image_step, tile_size: int,
+                               interval: int, image_batch: int = 64, device=None):
+    """The whole drawing sweep in one pass over the data: (probs [N, T] f32,
+    counts [N] int64), ``inference_tiles`` and ``inference_image``'s counts
+    at once (``iter_tiles_and_counts`` for the steps), every rank's rows
+    merged. The multi-process draw uses it, which must hold every row to
+    merge them."""
+    h, w = source.image_hw
+    n_t = tile_grid(h, w, tile_size, interval).shape[0]
+    n = len(source)
+    probs_out = np.zeros((n, n_t), dtype=np.float32)
+    counts_out = np.zeros(n, dtype=np.int64)
+    idx_chunks, val_chunks, cnt_chunks = [], [], []
+    for rows, vals, cnt in iter_tiles_and_counts(source, tile_step, image_step,
+                                                 image_batch=image_batch,
+                                                 device=device):
+        probs_out[rows] = vals
+        counts_out[rows] = cnt
+        idx_chunks.append(rows)
+        val_chunks.append(vals)
+        cnt_chunks.append(cnt)
+    merge_process_rows([probs_out, counts_out], idx_chunks, [val_chunks, cnt_chunks])
+    return probs_out, counts_out
 
 
 def sample_topk(

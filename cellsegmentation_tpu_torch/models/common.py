@@ -12,7 +12,9 @@ BatchNorm in train mode (``train=True``) follows flax's ``BatchNorm(
 momentum=0.9)``: it normalizes with the batch's own biased statistics and
 moves the running ones by ``ra = 0.9 * ra + 0.1 * batch``, the variance
 biased too (``F.batch_norm``'s own update would use the unbiased one and
-the complement of the momentum, so the update is computed here).
+the complement of the momentum, so the update is computed here). Under a
+multi-process mesh (``sync_batch_norm``) the batch is the global one, as
+flax's statistics over a dp-sharded array are.
 """
 
 from __future__ import annotations
@@ -30,12 +32,49 @@ from cellsegmentation_tpu_torch.ops.resize import resize_bilinear_align_corners
 BN_MOMENTUM = 0.9
 
 
+def sync_batch_norm(module: nn.Module, mesh) -> None:
+    """Train-mode BatchNorm of every BatchNorm in ``module`` over the global
+    batch of the ranks of ``mesh.group`` (a ``parallel.mesh.Mesh``), or over
+    the local batch again with None."""
+    for m in module.modules():
+        if isinstance(m, nn.modules.batchnorm._BatchNorm):
+            m.sync_mesh = mesh
+
+
+def _global_batch_norm(x: torch.Tensor, bn: nn.Module, mesh) -> torch.Tensor:
+    """Train-mode BatchNorm over the ranks' concatenated batches: per-channel
+    f32 sums, then sums of squared deviations from the global mean, each
+    all-reduced with the autograd-aware collective, so the backward is the
+    global batch's too; the running update as ``batch_norm``'s, from the
+    global biased variance."""
+    from torch.distributed.nn.functional import all_reduce
+
+    dims = [d for d in range(x.dim()) if d != 1]
+    view = (1, -1) + (1,) * (x.dim() - 2)
+    n_local = torch.full((1,), x.numel() // x.shape[1], dtype=x.dtype, device=x.device)
+    sums = all_reduce(torch.cat([x.sum(dims), n_local]), group=mesh.group)
+    n = sums[-1]
+    mean = sums[:-1] / n
+    xc = x - mean.view(view)
+    var = all_reduce((xc * xc).sum(dims), group=mesh.group) / n
+    y = xc * torch.rsqrt(var + bn.eps).view(view) * bn.weight.view(view) \
+        + bn.bias.view(view)
+    with torch.no_grad():
+        bn.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1 - BN_MOMENTUM)
+        bn.running_var.mul_(BN_MOMENTUM).add_(var, alpha=1 - BN_MOMENTUM)
+    return y
+
+
 def batch_norm(x: torch.Tensor, bn: nn.Module, train: bool) -> torch.Tensor:
     """f32 BatchNorm over every axis but 1: on the running statistics, or in
-    train mode on the batch's, updating the running ones in place."""
+    train mode on the batch's (the global batch's under ``sync_batch_norm``),
+    updating the running ones in place."""
     if not train:
         return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
                             bn.bias, False, 0.0, bn.eps)
+    mesh = getattr(bn, "sync_mesh", None)
+    if mesh is not None:
+        return _global_batch_norm(x, bn, mesh)
     # momentum 1 makes F.batch_norm write the batch's mean and unbiased
     # variance into these buffers; the flax update is made from them below
     mean = torch.zeros_like(bn.running_mean)
@@ -215,8 +254,11 @@ class UpConv(ConvBNAct):
     into the running mean as it loads: BN(conv + b) == BN'(conv) with
     mean' = mean - b, in both BatchNorm modes."""
 
+    # state-dict entries the load consumes without a parameter of their own
+    FOLDED_KEYS = ("0.bias",)
+
     def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
-        bias = state_dict.pop(prefix + "0.bias", None)
+        bias = state_dict.pop(prefix + self.FOLDED_KEYS[0], None)
         mean = prefix + "1.running_mean"
         if bias is not None and mean in state_dict:
             state_dict[mean] = state_dict[mean] - bias

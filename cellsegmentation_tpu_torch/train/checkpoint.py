@@ -8,10 +8,15 @@ prefix:
 
 - saving "image" (pt1) keeps {encoder, fc_image_cls, fc_image_reg};
 - saving "tile" (pt2) adds fc_tile; "segment" (pt3) adds seg_decoder;
-- loading merges whatever entries the file has into the target state dict
-  (the reference's ``strict=False``) and never fails on missing heads;
-  ``restore_into`` merges only the named partitions (the stage-1 -> stage-2
-  handoff, and the count CLI's load).
+- loading merges the file's entries into the target state dict and keeps
+  the model's own values where the file has none (the reference's
+  ``strict=False``: missing heads never fail); ``restore_into`` merges only
+  the named partitions (the stage-1 -> stage-2 handoff, and the count
+  CLI's load). A file in the reference's flat layout (``conv1.weight``,
+  ``layer1.*``, ``upconv<k>.*``) is mapped onto the port's ``encoder.`` /
+  ``seg_decoder.`` names first (utils/torch_convert.py). An entry that
+  lands on no model entry, or a named partition the file fills no entry
+  of, raises: a load never drops weights silently.
 
 ``optimizer`` is ``optimizer.state_dict()``. Schedules are pure functions
 of the step, so only the step counter is stored. The port reads and writes
@@ -31,6 +36,10 @@ from cellsegmentation_tpu_torch.models.milnet import (
     IMAGE_REG_KEY,
     SEG_KEY,
     TILE_KEY,
+)
+from cellsegmentation_tpu_torch.utils.torch_convert import (
+    is_reference_layout,
+    reference_to_port,
 )
 from torch import nn
 
@@ -88,9 +97,19 @@ def load_checkpoint(path: str) -> dict:
 
 def merge_loaded(target: dict, loaded: dict) -> dict:
     """``strict=False``: a copy of the ``target`` state dict with every entry
-    the file also has replaced by the file's; entries only in the file are
-    dropped."""
-    return {k: loaded.get(k, v) for k, v in target.items()}
+    the file also has replaced by the file's, and the file's other entries
+    added (a load hook may consume them: ``UpConv``'s conv bias)."""
+    return {**target, **loaded}
+
+
+def _stray_entries(model: nn.Module, loaded: dict) -> list:
+    """The file entries that land on no entry of ``model``: neither one of
+    its state-dict names nor a key a module's load consumes
+    (``FOLDED_KEYS``)."""
+    known = set(model.state_dict())
+    known |= {f"{name}.{key}" for name, m in model.named_modules()
+              for key in getattr(m, "FOLDED_KEYS", ())}
+    return sorted(k for k in loaded if k not in known)
 
 
 def restore_into(model: nn.Module, ckpt: dict,
@@ -98,10 +117,25 @@ def restore_into(model: nn.Module, ckpt: dict,
     """Copy a checkpoint payload's ``state_dict`` into ``model`` in place,
     only the entries of ``partitions`` (top-level module names) when given,
     every entry the file has otherwise; the model keeps its own values
-    elsewhere. Returns the model."""
+    where the file has none. A reference-layout file is mapped onto the
+    port's names first. Raises, listing them, on file entries that land on
+    no model entry, and on a named partition the file fills no entry of.
+    Returns the model."""
     loaded = ckpt["state_dict"]
+    if is_reference_layout(loaded):
+        loaded = reference_to_port(loaded)
+    stray = _stray_entries(model, loaded)
+    if stray:
+        raise ValueError(
+            f"{len(stray)} checkpoint entr{'y lands' if len(stray) == 1 else 'ies land'} "
+            f"on no entry of the {type(model).__name__}: " + ", ".join(stray[:8])
+            + ("..." if len(stray) > 8 else ""))
     if partitions is not None:
         loaded = {k: v for k, v in loaded.items()
                   if k.split(".", 1)[0] in partitions}
+        empty = [p for p in partitions
+                 if not any(k.split(".", 1)[0] == p for k in loaded)]
+        if empty:
+            raise ValueError(f"the checkpoint fills no entry of partition(s) {empty}")
     model.load_state_dict(merge_loaded(model.state_dict(), loaded))
     return model

@@ -35,6 +35,19 @@ encoder frozen (BatchNorm on running statistics, no autograd graph through
 it), as the JAX package's stage-2 step does with ``freeze_encoder_stats``
 and its ``"tile"`` optimizer mask. ``make_alternative_train_step``
 alternates it with the image step on one model, batch by batch.
+
+The image, tile and seg train steps take an optional ``mesh``
+(parallel/mesh.py). Over more than one rank, a step on each rank's local
+rows computes the JAX package's one step on the dp-sharded global batch,
+the ranks' batches in rank order: each rank's loss is its masked sum over
+the global valid count; the gradients of the trainable partition are
+all-reduced (summed) before the optimizer; the logged metrics are
+all-reduced, so every rank logs the global ones; train-mode BatchNorm
+normalizes by the global batch's statistics and moves the running ones by
+them (models/common.py ``sync_batch_norm``); dropout and stochastic-depth
+masks are drawn for the global batch from the (seed, step) generator and
+each rank takes its rows. ``make_alternative_train_step`` has no caller in
+either package and stays single-process.
 """
 
 from __future__ import annotations
@@ -45,10 +58,18 @@ import torch.nn.functional as F
 
 from cellsegmentation_tpu_torch.core.device import model_device
 from cellsegmentation_tpu_torch.data.batches import flip_images, normalize_images
-from cellsegmentation_tpu_torch.models.milnet import MILNet
+from cellsegmentation_tpu_torch.models.common import sync_batch_norm
+from cellsegmentation_tpu_torch.models.milnet import IMAGE_HEADS, MILNet
 from cellsegmentation_tpu_torch.ops.losses import count_weights, dice_coef
 from cellsegmentation_tpu_torch.ops.q8_trunk import W2_IMPLS
 from cellsegmentation_tpu_torch.ops.tiles import extract_tiles, tile_grid
+from cellsegmentation_tpu_torch.parallel.mesh import distributed
+from cellsegmentation_tpu_torch.parallel.sharding import (
+    all_reduce_grads,
+    all_reduce_sum,
+    global_count,
+    global_rows,
+)
 from cellsegmentation_tpu_torch.train.state import STAGE_TRAINABLE
 
 ENGINES = ("flax", "auto", "q8", "q8g", "q8d", "q8dg")
@@ -270,9 +291,16 @@ def make_stack_tile_infer_step(
     return infer_stack
 
 
-def _masked_mean(values: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    valid = valid.to(torch.float32)
-    return torch.sum(values * valid) / torch.clamp_min(torch.sum(valid), 1.0)
+def _masked_mean(values: torch.Tensor, valid: torch.Tensor,
+                 count: torch.Tensor) -> torch.Tensor:
+    """The sum of ``values`` over the valid rows, over ``count`` valid rows
+    (``global_count``: the global batch's, so that the ranks' terms sum to
+    the global mean)."""
+    return torch.sum(values * valid.to(torch.float32)) / torch.clamp_min(count, 1.0)
+
+
+def _trained(state) -> list:
+    return [p for g in state.optimizer.param_groups for p in g["params"]]
 
 
 def _gather_tiles(images_dev: torch.Tensor, img_idx, xs, ys,
@@ -288,7 +316,7 @@ def _gather_tiles(images_dev: torch.Tensor, img_idx, xs, ys,
 _BATCH_KEYS = ("img_idx", "xs", "ys", "flip", "label", "valid")
 
 
-def make_tile_train_step(model: MILNet, tile_size: int, device=None):
+def make_tile_train_step(model: MILNet, tile_size: int, device=None, mesh=None):
     """Cross-entropy training of ``fc_tile`` on selected tiles gathered from
     the device-resident uint8 stack.
 
@@ -300,7 +328,8 @@ def make_tile_train_step(model: MILNet, tile_size: int, device=None):
     masked-mean f32 cross-entropy steps the state's optimizer, which holds
     ``fc_tile`` only (train/state.py). The loss is returned as a device
     scalar, so the caller decides when to wait for it. ``step.loss_fn(
-    images_dev, batch)`` is the differentiable loss alone."""
+    images_dev, batch)`` is the differentiable loss alone. Over a ``mesh``
+    of several ranks, the step of the global batch (module docstring)."""
     dev = model_device(model, device)
 
     def loss_fn(images_dev, batch):
@@ -316,14 +345,15 @@ def make_tile_train_step(model: MILNet, tile_size: int, device=None):
         logits = model.fc_tile(x4)
         logp = F.log_softmax(logits.float(), dim=-1)
         ce_each = -logp.gather(1, b["label"].long()[:, None])[:, 0]
-        return _masked_mean(ce_each, b["valid"])
+        return _masked_mean(ce_each, b["valid"], global_count(mesh, b["valid"]))
 
     def step(state, images_dev, batch):
         ce = loss_fn(images_dev, batch)
         state.optimizer.zero_grad(set_to_none=True)
         ce.backward()
+        all_reduce_grads(mesh, _trained(state))
         state.apply_gradients()
-        return state, {"loss": ce.detach()}
+        return state, all_reduce_sum(mesh, {"loss": ce.detach()})
 
     step.loss_fn = loss_fn
     return step
@@ -347,7 +377,7 @@ def dropout_generator(seed: int, step: int, device) -> torch.Generator:
 
 def make_image_train_step(model: MILNet, heads: str = "both",
                           reg_loss: str = "mse", seed: int = 0, device=None,
-                          alpha: float = 1.0, beta: float = 1.0):
+                          alpha: float = 1.0, beta: float = 1.0, mesh=None):
     """Stage-1 step over batches ``{images: u8 [B,H,W,3], flip, cls, reg,
     valid}`` (host or device arrays; ``valid`` masks the last batch's
     padding out of the loss, while the padded rows still take part in every
@@ -366,27 +396,35 @@ def make_image_train_step(model: MILNet, heads: str = "both",
     tuples) gives them, and so do an EfficientNet encoder's
     stochastic-depth masks (drawn first) unless ``sd_masks`` gives them
     (models/efficientnet.py). ``step.loss_fn(batch, dropout_masks=None,
-    step=0, sd_masks=None)`` is the forward alone: (loss, ce, se)."""
+    step=0, sd_masks=None)`` is the forward alone: (loss, ce, se). Over a
+    ``mesh`` of several ranks, the step of the global batch (module
+    docstring); given masks are this rank's rows."""
     if heads not in HEADS:
         raise ValueError(f"heads must be one of {HEADS}, got {heads!r}")
     if reg_loss not in REG_LOSSES:
         raise ValueError(f"reg_loss must be one of {REG_LOSSES}, got {reg_loss!r}")
     dev = model_device(model, device)
+    sync_batch_norm(model, mesh if distributed(mesh) else None)
 
     def loss_fn(batch, dropout_masks=None, step=0, sd_masks=None):
         b = {k: _as_device(batch[k], dev) for k in _IMAGE_KEYS}
         x = normalize_images(b["images"], b["flip"])
+        gen = dropout_generator(seed, step, dev)
+        if distributed(mesh):
+            sd_masks, dropout_masks = _global_masks(model, x.shape[0], mesh, gen,
+                                                    sd_masks, dropout_masks)
         out_cls, out_reg = model(x, mode="image", train=True,
                                  dropout_masks=dropout_masks, sd_masks=sd_masks,
-                                 generator=dropout_generator(seed, step, dev))
+                                 generator=gen)
+        count = global_count(mesh, b["valid"])
         logp = F.log_softmax(out_cls.float(), dim=-1)
         ce = _masked_mean(-logp.gather(1, b["cls"].long()[:, None])[:, 0],
-                          b["valid"])
+                          b["valid"], count)
         targets = b["reg"].float()
         se_each = (out_reg[:, 0].float() - targets) ** 2
         if reg_loss == "weighted_mse":
             se_each = count_weights(targets) * se_each
-        se = _masked_mean(se_each, b["valid"])
+        se = _masked_mean(se_each, b["valid"], count)
         loss = {"both": alpha * ce + beta * se, "cls": alpha * ce, "reg": beta * se}[heads]
         return loss, ce, se
 
@@ -394,12 +432,29 @@ def make_image_train_step(model: MILNet, heads: str = "both",
         loss, ce, se = loss_fn(batch, dropout_masks, state.step, sd_masks)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        all_reduce_grads(mesh, _trained(state))
         state.apply_gradients()
         ce, se = ce.detach(), se.detach()
-        return state, {"loss_cls": ce, "loss_reg": se, "loss": alpha * ce + beta * se}
+        return state, all_reduce_sum(
+            mesh, {"loss_cls": ce, "loss_reg": se, "loss": alpha * ce + beta * se})
 
     step.loss_fn = loss_fn
     return step
+
+
+def _global_masks(model, n: int, mesh, gen, sd_masks, dropout_masks):
+    """The stochastic-depth and dropout keep masks of the global batch, drawn
+    from ``gen`` in the single-process forward's order (the encoder's first,
+    then each head's, the class head first), each cut to this rank's rows.
+    Masks the caller gave are kept as given."""
+    dev = gen.device
+    n_global, rows = global_rows(mesh, n)
+    if sd_masks is None and hasattr(model.encoder, "sd_blocks"):
+        sd_masks = [m[rows] for m in model.encoder.draw_sd_masks(n_global, gen, dev)]
+    if dropout_masks is None:
+        dropout_masks = {k: tuple(m[rows] for m in getattr(model, k).draw_masks(
+            n_global, gen, dev)) for k in IMAGE_HEADS}
+    return sd_masks, dropout_masks
 
 
 _TILE_OF_ALTERNATIVE = {"img_idx": "img_idx", "xs": "xs", "ys": "ys", "flip": "tflip",
@@ -463,7 +518,7 @@ def make_image_infer_step(model: MILNet, device=None):
 _SEG_KEYS = ("images", "flip", "mask", "valid")
 
 
-def make_seg_train_step(model: MILNet, device=None):
+def make_seg_train_step(model: MILNet, device=None, mesh=None):
     """Stage-3 step over batches ``{images: u8 [B,H,W,3], flip, mask: 0/1
     [B,H,W] (already flipped with its image), valid}``, host or device.
 
@@ -475,28 +530,34 @@ def make_seg_train_step(model: MILNet, device=None):
     rows take part, as in the JAX package). The state's optimizer holds the
     ``"segment"`` partition, the decoder (train/state.py): the encoder's
     parameters need no gradient, so autograd keeps out of it.
-    ``step.loss_fn(batch) -> (dice, ce)`` is the forward alone."""
+    ``step.loss_fn(batch) -> (dice, ce)`` is the forward alone. Over a
+    ``mesh`` of several ranks, the step of the global batch (module
+    docstring)."""
     dev = model_device(model, device)
+    sync_batch_norm(model, mesh if distributed(mesh) else None)
 
     def loss_fn(batch):
         b = {k: _as_device(batch[k], dev) for k in _SEG_KEYS}
         x = normalize_images(b["images"], b["flip"])
         logits = model(x, mode="segment", train=True).float()
         probs_pos = torch.softmax(logits, dim=-1)[..., 1]
-        dice = _masked_mean(1 - dice_coef(probs_pos, b["mask"]), b["valid"])
+        count = global_count(mesh, b["valid"])
+        dice = _masked_mean(1 - dice_coef(probs_pos, b["mask"]), b["valid"], count)
         with torch.no_grad():
             logp = F.log_softmax(logits, dim=-1)
             ce_map = -logp.gather(-1, b["mask"].long()[..., None])[..., 0]
-            ce = _masked_mean(ce_map.mean(dim=(1, 2)), b["valid"])
+            ce = _masked_mean(ce_map.mean(dim=(1, 2)), b["valid"], count)
         return dice, ce
 
     def step(state, batch):
         dice, ce = loss_fn(batch)
         state.optimizer.zero_grad(set_to_none=True)
         dice.backward()
+        all_reduce_grads(mesh, _trained(state))
         state.apply_gradients()
         dice = dice.detach()
-        return state, {"loss_ce": ce, "loss_dice": dice, "loss": dice}
+        return state, all_reduce_sum(mesh, {"loss_ce": ce, "loss_dice": dice,
+                                            "loss": dice})
 
     step.loss_fn = loss_fn
     return step

@@ -4,8 +4,16 @@ MIL cycle and stage 3 (pseudo-mask drawing, seg-decoder training).
 The steps (train/steps.py) do the math on the device; the host loop owns
 the data-dependent control flow: the batches, stage 1's hard-example
 resampling, stage 2's per-epoch sweep and selection, stage 3's per-epoch
-flips, validation and checkpointing. Single-process: the multi-host split
-comes with the ``parallel/`` slice of the port.
+flips, validation and checkpointing.
+
+Across the ranks of a ``torch.distributed`` group (each trainer builds
+its mesh over them, parallel/mesh.py) each rank walks its strided shard of
+the same shuffled order (``_host_iter``) and the steps reduce over the
+global batch; rank 0's weights are broadcast first. Stage 2's sweep splits every global
+image batch into contiguous per-rank slices and merges the rows, so every
+rank selects the same tiles. Every rank writes its checkpoints, CSVs and
+PNGs, as every process of the JAX package does: give each rank its own
+output directory.
 """
 
 from __future__ import annotations
@@ -28,6 +36,17 @@ from cellsegmentation_tpu_torch.models.milnet import MILNet
 from cellsegmentation_tpu_torch.ops.infer_engine import pick_calib_images
 from cellsegmentation_tpu_torch.ops.tiles import tile_grid
 from cellsegmentation_tpu_torch.ops.topk import topk_threshold_mask
+from cellsegmentation_tpu_torch.parallel.mesh import make_mesh
+from cellsegmentation_tpu_torch.parallel.multihost import (
+    merge_process_rows,
+    process_count,
+    process_index,
+)
+from cellsegmentation_tpu_torch.parallel.sharding import (
+    global_rows,
+    replicate_tree,
+    shard_batch,
+)
 from cellsegmentation_tpu_torch.train.checkpoint import save_checkpoint
 from cellsegmentation_tpu_torch.train.schedules import make_schedule
 from cellsegmentation_tpu_torch.train.state import TrainState, create_train_state
@@ -103,6 +122,58 @@ class _MetricsPipe:
         return {k: v / max(self.n, 1) for k, v in self.sums.items()}
 
 
+def _round_to_ranks(batch_size: int) -> int:
+    """A global batch size rounded up to a multiple of the process count."""
+    pc = process_count()
+    return -(-batch_size // pc) * pc
+
+
+def _host_iter(n: int, global_batch: int, *, shuffle: bool = True,
+               seed: int = 0) -> BatchIterator:
+    """Process-sharded epoch iterator over GLOBAL batch sizes (rounded up
+    to the process count): every process draws the same permutation (same
+    seed) and walks its own strided shard, local batches of global /
+    processes rows."""
+    pc = process_count()
+    return BatchIterator(n, _round_to_ranks(global_batch) // pc, shuffle=shuffle,
+                         seed=seed, process_index=process_index(), process_count=pc)
+
+
+def split_sweep(stack_infer_fn, images_dev, source, n_tiles: int,
+                image_batch: int) -> np.ndarray:
+    """[N, T] tile probs of every sample of ``source``, gathered from
+    ``images_dev``, the device-resident stack of ``source.images``.
+
+    The sweep walks GLOBAL contiguous batches of ``image_batch`` (a multiple
+    of the process count), the same on every process; each process sweeps
+    the contiguous slice ``sel[lo:lo + per]`` of every batch through the
+    process-local stack step, two slices in flight, and the rows are
+    merged at the end, so every process returns the whole matrix."""
+    pc = process_count()
+    if image_batch % pc:
+        raise ValueError(f"image batch {image_batch} does not split over {pc} processes")
+    per = image_batch // pc
+    lo = process_index() * per
+    n = len(source)
+    flip, base_idx = source.flip_code, source.base_idx
+    out = np.zeros((n, n_tiles), dtype=np.float32)
+    idx_chunks, val_chunks = [], []
+
+    def dispatch(lv):
+        lsel, _ = lv
+        return stack_infer_fn(images_dev, base_idx[lsel], flip[lsel])
+
+    mine = ((sel[lo:lo + per], valid[lo:lo + per])
+            for sel, valid in BatchIterator(n, image_batch, shuffle=False))
+    for (lsel, lvalid), probs in infer.pipeline2(mine, dispatch):
+        vals = probs.cpu().numpy()[lvalid]
+        out[lsel[lvalid]] = vals
+        idx_chunks.append(lsel[lvalid])
+        val_chunks.append(vals)
+    merge_process_rows([out], idx_chunks, [val_chunks])
+    return out
+
+
 def _restore_optimizer(state: TrainState, resume_opt_state) -> None:
     """Load a checkpoint's optimizer state; one another optimizer or stage
     wrote is refused with a warning, and the run goes on with fresh state."""
@@ -153,16 +224,20 @@ def train_stage1(
 
     The model carries the weights and is trained in place; it must live on
     ``device`` (the CUDA card unless ``device="cpu"``). The arguments are
-    the JAX package's, without ``variables``, ``mesh`` and
-    ``save_every_epoch`` (a checkpoint is written every epoch). Adam without a
-    scheduler, SGD with one. Resuming (``last_epoch``) moves the step to
-    ``last_epoch * steps_per_epoch`` and the shuffle stream past the done
-    epochs; the dropout masks follow the step, so the run continues as a
-    straight one would.
+    the JAX package's, without ``variables`` and ``save_every_epoch`` (a
+    checkpoint is written every epoch). Adam without a scheduler, SGD with
+    one. Resuming (``last_epoch``) moves the step to ``last_epoch *
+    steps_per_epoch`` and the shuffle stream past the done epochs; the
+    dropout masks follow the step, so the run continues as a straight one
+    would. Across processes ``batch_size`` is the global batch (module
+    docstring); the scored pool and ``random_delete``'s draws (the
+    source's own seeded generator) agree on every rank, so the resampled
+    pool does too.
     """
     dev = model_device(model, device)
     logger = logger or RunLogger(output_dir or "./output")
-    it = BatchIterator(len(train_source), batch_size, shuffle=True, seed=seed)
+    mesh = make_mesh()
+    it = _host_iter(len(train_source), batch_size, shuffle=True, seed=seed)
     steps_per_epoch = len(it)
     schedule = make_schedule(scheduler, lr, epochs, steps_per_epoch)
     stage = {"both": "image", "cls": "image_cls", "reg": "image_reg"}[heads]
@@ -173,8 +248,9 @@ def train_stage1(
         state.step = last_epoch * steps_per_epoch
         it.fast_forward(last_epoch)
     _restore_optimizer(state, resume_opt_state)
+    replicate_tree(mesh, model)
     step_fn = make_image_train_step(model, heads=heads, reg_loss=reg_loss,
-                                    seed=seed, device=dev)
+                                    seed=seed, device=dev, mesh=mesh)
     infer_fn = make_image_infer_step(model, device=dev)
 
     def save(epoch):
@@ -199,7 +275,7 @@ def train_stage1(
                              "cls": cls_labels[sel],
                              "reg": train_source.labels[sel].astype(np.float32),
                              "valid": valid}
-                    state, metrics = step_fn(state, batch)
+                    state, metrics = step_fn(state, shard_batch(batch, dev))
                     pipe.push(metrics)
                 means = pipe.means()  # waits for the last step
             t1 = time.perf_counter()
@@ -235,8 +311,8 @@ def train_stage1(
                     rows = train_source.snapshot_rows(hard)
                     train_source.random_delete(len(hard))
                     train_source.append_rows(*rows)
-                    it = BatchIterator(len(train_source), batch_size,
-                                       shuffle=True, seed=seed + epoch)
+                    it = _host_iter(len(train_source), batch_size,
+                                    shuffle=True, seed=seed + epoch)
                     logger.info(f"  resampled {len(hard)} hard examples")
             t2 = time.perf_counter()
             epoch_stats.append({"train": t1 - t0, "val": t2 - t1,
@@ -293,14 +369,23 @@ def train_stage2(
 
     The model carries the weights and is trained in place; it must live on
     ``device`` (the CUDA card unless ``device="cpu"``). The arguments are
-    the JAX package's, without its ``variables`` (the model holds them) and
-    ``mesh``, plus ``w2_impl`` (the GEMM trunk's 3x3 form) and ``device``.
+    the JAX package's, without its ``variables`` (the model holds them),
+    plus ``w2_impl`` (the GEMM trunk's 3x3 form) and ``device``.
     The sweep engine is built once (the encoder is frozen for the whole
     cycle, so its folding and calibration stay valid; it reads ``fc_tile``
     at every call), and the training images cross to the device once.
+
+    Across processes ``image_batch`` is rounded up to the process count
+    and the sweep is ``split_sweep``'s: every rank then runs
+    ``sample_topk`` on the same merged probabilities with the same seed, so
+    the selections agree, and trains on its ``_host_iter`` shard of them
+    with the gradient all-reduce. The engine is calibrated from the same
+    images on every rank (``pick_calib_images``), so the int8 scales agree.
     """
     dev = model_device(model, device)
     logger = logger or RunLogger(output_dir or "./output")
+    mesh = make_mesh()
+    replicate_tree(mesh, model)
     h, w = train_source.image_hw
     coords = tile_grid(h, w, tile_size, interval)
     calib = (pick_calib_images(train_source.images)
@@ -310,7 +395,7 @@ def train_stage2(
         device=dev, w2_impl=w2_impl,
     )
     infer_fn = stack_infer_fn.infer_step
-    step_fn = make_tile_train_step(model, tile_size, device=dev)
+    step_fn = make_tile_train_step(model, tile_size, device=dev, mesh=mesh)
     images_dev = torch.as_tensor(np.asarray(train_source.images)).to(dev)
 
     # the schedule is sized from a nominal epoch length: the real per-epoch
@@ -325,22 +410,7 @@ def train_stage2(
     _restore_optimizer(state, resume_opt_state)
 
     n_t = coords.shape[0]
-
-    def dense_probs() -> np.ndarray:
-        """[N, T] tile probs of every training sample, gathered from the
-        device-resident stack, two batches in flight."""
-        n = len(train_source)
-        flip, base_idx = train_source.flip_code, train_source.base_idx
-        out = np.zeros((n, n_t), dtype=np.float32)
-
-        def dispatch(sv):
-            sel, _ = sv
-            return stack_infer_fn(images_dev, base_idx[sel], flip[sel])
-
-        batches = BatchIterator(n, image_batch, shuffle=False)
-        for (sel, valid), probs in infer.pipeline2(batches, dispatch):
-            out[sel[valid]] = probs.cpu().numpy()[valid]
-        return out
+    image_batch = _round_to_ranks(image_batch)
 
     last_metrics = None
     selections = [] if record_selection else None
@@ -358,7 +428,8 @@ def train_stage2(
             state.step = (epoch - 1) * nominal_steps
             t0 = time.perf_counter()
             # 1) dense inference over every training tile
-            probs = dense_probs()
+            probs = split_sweep(stack_infer_fn, images_dev, train_source, n_t,
+                                image_batch)
             t1 = time.perf_counter()
             # 2) adaptive top-k selection + ratio pruning
             train_data = infer.sample_topk(
@@ -377,14 +448,14 @@ def train_stage2(
             # iterator seeded by the epoch, so a resumed epoch replays the
             # same batches
             n_sel = len(train_data["label"])
-            it = BatchIterator(n_sel, min(tile_batch_size, max(n_sel, 1)),
-                               shuffle=True, seed=seed + epoch)
+            it = _host_iter(n_sel, min(tile_batch_size, max(n_sel, 1)),
+                            shuffle=True, seed=seed + epoch)
             pipe = _MetricsPipe()
             for sel, valid in it:
                 batch = {k: train_data[k][sel]
                          for k in ("img_idx", "xs", "ys", "flip", "label")}
                 batch["valid"] = valid
-                state, metrics = step_fn(state, images_dev, batch)
+                state, metrics = step_fn(state, images_dev, shard_batch(batch, dev))
                 pipe.push(metrics)
             loss = pipe.means().get("loss", 0.0)  # waits for the last step
             t3 = time.perf_counter()
@@ -461,9 +532,13 @@ def draw_pseudo_masks(
     ``device`` (the CUDA card unless ``device="cpu"``). Streamed: each image
     batch crosses to the device once for both heads
     (``infer.iter_tiles_and_counts``), and the host paints, refines and
-    saves batch i while the device sweeps batch i+1. Single-process: the
-    multi-host branch comes with the ``parallel/`` slice of the port."""
+    saves batch i while the device sweeps batch i+1. Across processes the
+    sweep is ``infer.inference_tiles_and_counts``' (each rank its share of
+    the batches, the rows merged), then every rank paints all images
+    (``generate_masks``): shipping [N, T] probs and counts between ranks is
+    far cheaper than shipping painted [N, H, W] masks."""
     from cellsegmentation_tpu_torch.postprocess.masks import (
+        generate_masks,
         paint_tile_blocks,
         preprocess_masks_batch,
         save_mask_pairs,
@@ -482,6 +557,18 @@ def draw_pseudo_masks(
     infer_image_fn = make_image_infer_step(model, device=dev)
     n = len(source)
     base_idx = getattr(source, "base_idx", np.arange(n))
+    if process_count() > 1:
+        probs, counts = infer.inference_tiles_and_counts(
+            source, infer_tiles_fn, infer_image_fn, tile_size, interval,
+            image_batch=image_batch, device=dev)
+        keep = topk_threshold_mask(probs, threshold) & (counts != 0)[:, None]
+        groups, tile_idx = np.nonzero(keep)
+        logger.info(f"pseudo-masks: {len(groups)} tiles kept on "
+                    f"{len(np.unique(groups))}/{n} images (tile engine {engine_ran})")
+        return generate_masks(source.images[base_idx], groups, coords[tile_idx],
+                              tile_size, preprocess=preprocess,
+                              save_masks=output_path is not None,
+                              output_path=output_path or "./data/pseudomask")
     masks = np.zeros((n, h, w), dtype=np.uint8)
     kept_tiles = kept_images = 0
     for rows, probs, counts in infer.iter_tiles_and_counts(
@@ -544,10 +631,16 @@ def train_stage3(
     warm restarts). Resuming (``last_epoch``) moves the step and the
     shuffle stream past the done epochs, so the run continues as a straight
     one would. The model carries the weights and is trained in place; it
-    must live on ``device`` (the CUDA card unless ``device="cpu"``)."""
+    must live on ``device`` (the CUDA card unless ``device="cpu"``). Across
+    processes ``batch_size`` is the global batch (module docstring), and the
+    flips are drawn for the global batch, each rank taking its rows: the JAX
+    package draws each process's local count from the one generator, which
+    gives every rank the same flip codes.
+    """
     dev = model_device(model, device)
     logger = logger or RunLogger(output_dir or "./output")
-    it = BatchIterator(len(mask_source), batch_size, shuffle=True, seed=seed)
+    mesh = make_mesh()
+    it = _host_iter(len(mask_source), batch_size, shuffle=True, seed=seed)
     schedule = make_schedule(scheduler, lr, epochs, len(it), t0=5)
     state = create_train_state(model, "segment", schedule,
                                use_sgd=scheduler is not None,
@@ -556,7 +649,8 @@ def train_stage3(
         state.step = last_epoch * len(it)
         it.fast_forward(last_epoch)
     _restore_optimizer(state, resume_opt_state)
-    step_fn = make_seg_train_step(model, device=dev)
+    replicate_tree(mesh, model)
+    step_fn = make_seg_train_step(model, device=dev, mesh=mesh)
 
     def save(epoch):
         save_checkpoint(output_dir, "segment", epoch, encoder_name,
@@ -571,13 +665,14 @@ def train_stage3(
             pipe = _MetricsPipe()
             aug_rng = np.random.default_rng(seed + epoch)
             for sel, valid in it:
-                flips = (aug_rng.integers(0, 4, size=len(sel)).astype(np.int32)
+                n_global, rows = global_rows(mesh, len(sel))
+                flips = (aug_rng.integers(0, 4, size=n_global).astype(np.int32)[rows]
                          if mask_source.augment
                          else np.zeros(len(sel), dtype=np.int32))
                 batch = {"images": mask_source.images[sel], "flip": flips,
                          "mask": flip_masks(mask_source.masks[sel], flips),
                          "valid": valid}
-                state, metrics = step_fn(state, batch)
+                state, metrics = step_fn(state, shard_batch(batch, dev))
                 pipe.push(metrics)
             means = pipe.means()  # waits for the last step
             epoch_stats.append({"train": time.perf_counter() - t0,

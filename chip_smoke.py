@@ -71,8 +71,9 @@ seeded synthetic LYSTO images:
    launched; its images/s, tiles kept and peak memory. The per-tile q8
    log-odds against the exact graph on the card and against the CPU.
    ``train_stage3`` for 2 epochs at the CLI's defaults (batch 32, Adam, lr
-   5e-5) on the drawn masks, augmented, which launches no hand-written
-   kernel; the seg step's images/s, MFU and peak memory at batch 32; one
+   5e-5) on the drawn masks, augmented, under torch's deterministic
+   algorithms (the same pt3 weights every run), which launches no
+   hand-written kernel; the seg step's images/s, MFU and peak memory at batch 32; one
    f32 seg step on the card against the CPU, and three planted faults
    (align_corners=False, masks left unflipped, encoder statistics frozen)
    that this gate must reject; the pt3 file into a fresh model, whose seg
@@ -91,7 +92,9 @@ seeded synthetic LYSTO images:
    mask PNGs decode to the masks stitched from the seg step's own outputs,
    the counts are the sums of the patches' rounded counts, no hand-written
    kernel runs; host time of the localization by part, the device's busy
-   share; one patch batch's seg probs card vs CPU; the localization alone
+   share; one patch batch's seg probs card vs CPU, and two planted faults
+   (one decoder BatchNorm on its initial statistics) that this gate must
+   reject; the localization alone
    on planted cells (each found within 2 px, F1 1); ``test_seg``'s point
    evaluation on 16 images;
 11. kernels-resnext: each ResNeXt's (resnext50_32x4d, resnext101_32x8d)
@@ -131,6 +134,20 @@ seeded synthetic LYSTO images:
    set from its tiles, the heads pinned as in [stage3]),
    ``train_stage3`` refused; profiles of the sweep step and the stage-1
    step with depthwise convs and the squeeze-excite apart;
+14a. multiproc: the port's ``parallel/``: one world-size-1 group through
+   ``maybe_initialize`` on the card (NCCL); then two ranks of this script
+   (``--mp-rank``), spawned with a timeout, share the card over gloo: each
+   sweeps its contiguous slice of every image batch of ``train_stage2``'s
+   split sweep (engine auto, q8dg) on the [slice] source's first 64
+   samples, counted per rank (1 / 8 / 20 tap / q8_matmul / q8_matmul_px per
+   call); the merged sweep bit-equal to this process's sweep at the
+   per-rank batch and inside [slice]'s gate against the full batch, its
+   images/s beside the 1-process sweep's; a 1-epoch ``train_stage2`` over
+   both ranks (the same selections and fc_tile on each); one f32 stage-1
+   step at global batch 16 against the 1-rank step on the concatenated
+   batch, and three planted faults (local BatchNorm statistics, the loss
+   over the local count, the gradients averaged over the ranks) that this
+   gate must reject;
 15. profile: device time by kernel over one sweep step: 29 launches of the
    wgmma kernel under its own name and no other hand-written kernel;
 16. one JSON line with every kernel's launches and times (the q8g path's,
@@ -149,6 +166,7 @@ import contextlib
 import copy
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -258,8 +276,18 @@ SERVE_TILE_ENGINES = ("flax", "q8", "q8g")
 DETECT_IMAGES, DETECT_HW, DETECT_BATCH = 4, (1200, 1600), 8
 # The seg probs of one patch batch, card vs CPU: the same bf16 model on
 # both, cuDNN and oneDNN rounding bf16 convs in other places through the
-# encoder and the decoder's 16 convs. Set before the first chip run.
+# encoder and the decoder's 16 convs. Set before the first chip run at
+# 0.05 / 0.005. The pt3 model comes from [stage3]'s training, which moved
+# between runs while it ran with atomic index_add in the resizes' backward
+# (seven runs on NVIDIA H100 80GB HBM3, 700 W read max 0.0366-0.0507, mean
+# 0.0026-0.0027), so [stage3] trains under torch's deterministic
+# algorithms: two runs of it in one process gave bit-equal pt3 files, and
+# the gate read max 0.041482 mean 0.0027341 on them. The planted faults
+# each leave one decoder BatchNorm on its initial statistics (mean 0,
+# variance 1) in the CPU model; they read max 0.906 / 0.869, mean 0.442 /
+# 0.138 (upconv1 / upconv8; NVIDIA H100 80GB HBM3, 700 W).
 DETECT_CARD_CPU_MAX, DETECT_CARD_CPU_MEAN = 0.05, 0.005
+DETECT_FAULT_BNS = ("upconv1", "upconv8")
 # planted cells for the localization alone: every centre within this many
 # px of a kept one
 PLANTED_TOL_PX = 2
@@ -281,6 +309,33 @@ POINT_EVAL_IMAGES = 16
 # read loss 2.83e-3 / 3.81e-4, 1 - cos 2.5e-4 / 2.6e-4, gap 2.07e-2 /
 # 2.76e-2. Each limit sits between the two, with room on both sides: loss
 # 35x / 19x, 1 - cos 15x / 12x, gap 2.9x / 2.1x.
+# [multiproc]: MP_RANKS ranks share the one card over gloo, spawned by this
+# script; the split sweep on the [slice] source's first MP_SAMPLES samples,
+# MP_SWEEPS times, each rank's slice of every image batch; a stage-1 step
+# at global batch MP_STAGE1_BATCH (f32, TF32 off) against the 1-rank step on
+# the concatenated batch, which differs from it in summation order alone.
+# Set before the first card run at the CPU test's limits widened 10x (loss
+# 1e-4, cosine 0.9999, statistics 1e-4), the cosine failed there: the first
+# card run read loss rel 0, cosine 0.999805, statistics 9.17e-6 (NVIDIA H100
+# 80GB HBM3, 700 W). Train-mode BatchNorm over 8-16 rows amplifies f32
+# rounding into the gradient ([stage1]'s card-vs-CPU step reads cosine
+# 0.999813), and on the CPU the 1-rank step on its rows reversed, the same
+# sums in another order, sits further from the step in order (1 - cos
+# 4.7e-5) than the 2-rank step does (5.7e-7): the phase prints that floor
+# beside the gate. The cosine limit is [stage1]'s, S1_GRAD_MIN_COS; the
+# planted faults read on the CPU loss rel 0.05 / 1, far outside. A cosine
+# cannot see a gradient's size, so the gradient norm ratio is gated too
+# (|norm / 1-rank norm - 1|): set before its first card run at 1e-2, with
+# the clean reading expected near 1 - cos (about 2e-4) and the planted
+# "gradients averaged over the ranks" reading 0.5 by construction. The
+# card read 1.07e-3 clean (the floors beside it 8.3e-4 / 1.0e-3) and 0.501
+# planted.
+MP_RANKS, MP_SAMPLES, MP_SWEEPS, MP_STAGE1_BATCH = 2, 64, 3, 16
+MP_TIMEOUT_S = 600
+MP_LOSS_RTOL, MP_GRAD_MIN_COS, MP_STAT_RTOL = 1e-4, 0.9995, 1e-4
+MP_GRAD_NORM_RTOL = 1e-2
+MP_FAULTS = ("local BatchNorm", "loss over the local count",
+             "gradients averaged over the ranks")
 TRAIN_LOSS_RTOL = 2e-5
 TRAIN_GRAD_MIN_COS = 0.99998
 TRAIN_GRAD_MAX_GAP = 1e-2
@@ -469,6 +524,21 @@ def graph_ms(fn, args=(), kw=None, iters: int = 20, cold: bool = False) -> float
     del graph, keep, sets
     torch.cuda.empty_cache()
     return ms
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """torch's deterministic algorithms for a block (index_add_ without
+    atomics in the resizes' backward, deterministic cuDNN convolutions), so
+    a training run on the card gives the same weights every time."""
+    import torch
+
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was)
 
 
 def quiet_head(model):
@@ -2079,10 +2149,11 @@ def phase_stage3(args, card):
         tq.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = train_stage3(model, msrc, epochs=STAGE3_EPOCHS, batch_size=STAGE3_BATCH,
-                           lr=STAGE3_LR, weight_decay=1e-4, seed=args.seed,
-                           output_dir=out, device="cuda",
-                           logger=RunLogger(out, run_name="stage3", tensorboard=False))
+        with deterministic_algorithms():
+            res = train_stage3(model, msrc, epochs=STAGE3_EPOCHS, batch_size=STAGE3_BATCH,
+                               lr=STAGE3_LR, weight_decay=1e-4, seed=args.seed,
+                               output_dir=out, device="cuda",
+                               logger=RunLogger(out, run_name="stage3", tensorboard=False))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {fn.__name__: fn.launches for fn in tq.KERNELS}
@@ -3379,6 +3450,18 @@ def phase_detect(args, card, ck):
           f"{DETECT_CARD_CPU_MEAN}); P(positive) {p_g.min():.4f}..{p_g.max():.4f}")
     check(d.max() <= DETECT_CARD_CPU_MAX and d.mean() <= DETECT_CARD_CPU_MEAN,
           f"seg probs card vs CPU max {d.max():.6f} mean {d.mean():.7f}")
+    for name in DETECT_FAULT_BNS:
+        bad = copy.deepcopy(cpu_model)
+        bn = bad.seg_decoder.get_submodule(f"{name}.1")
+        with torch.no_grad():
+            bn.running_mean.zero_()
+            bn.running_var.fill_(1.0)
+        d = np.abs(p_g - make_seg_infer_step(bad, device="cpu")(batch, flip).numpy())
+        passed = d.max() <= DETECT_CARD_CPU_MAX and d.mean() <= DETECT_CARD_CPU_MEAN
+        print(f"[detect] planted fault '{name} BatchNorm on its initial statistics' "
+              f"(CPU): max {d.max():.6f} mean {d.mean():.7f}: "
+              f"{'passed' if passed else 'REJECTED'}")
+        check(not passed, f"the seg-probs gate passed the planted fault in {name}")
 
     # the localization alone on planted cells
     worst, n_cells = 0.0, 0
@@ -3511,6 +3594,387 @@ def phase_profile(step, images):
           f"and no other")
 
 
+# ---------------------------------------------------------------------------
+# [multiproc]: the port's parallel/ over torch.distributed, two ranks on the
+# one card
+# ---------------------------------------------------------------------------
+
+
+def _mp_source(args):
+    """The [slice] source's first MP_SAMPLES samples (base images 0-63,
+    unflipped), sharing its 64-image stack."""
+    import numpy as np
+
+    from cellsegmentation_tpu_torch.data import LystoDataSource, make_synthetic_arrays
+    from cellsegmentation_tpu_torch.data.lysto import SubsetSource
+
+    arrays = make_synthetic_arrays(args.images, args.hw, 30, seed=args.seed)
+    src = LystoDataSource.from_arrays(arrays["images"], arrays["organs"],
+                                      arrays["counts"], kfold=None, augment=True)
+    return src, SubsetSource(src, np.arange(MP_SAMPLES))
+
+
+def _mp_sweep_step(args, sub, dev):
+    """The stack step train_stage2 builds for ``sub`` (engine auto, the
+    calibration images picked from its stack) on a seeded ResNet-50."""
+    from cellsegmentation_tpu_torch.models import build_model
+    from cellsegmentation_tpu_torch.ops.infer_engine import pick_calib_images
+    from cellsegmentation_tpu_torch.train.steps import make_stack_tile_infer_step
+
+    model = quiet_head(build_model("resnet50", device=dev, seed=args.seed))
+    step = make_stack_tile_infer_step(model, args.tile, _coords(args), engine="auto",
+                                      calib_images=pick_calib_images(sub.images),
+                                      device=dev)
+    check(step.resolved_engine == "q8dg", f"auto resolved to {step.resolved_engine}")
+    return model, step
+
+
+def _mp_timed_sweeps(args, step, images_dev, sub, image_batch, barrier=None):
+    """(merged probs of the first of MP_SWEEPS split sweeps, each sweep's
+    seconds, the first sweep's launches): every sweep starts together on
+    every rank."""
+    import torch
+
+    from cellsegmentation_tpu_torch.kernels import q8_gemm as tq
+    from cellsegmentation_tpu_torch.train.trainers import split_sweep
+
+    secs, probs, launches = [], None, None
+    for i in range(MP_SWEEPS):
+        if barrier:
+            barrier()
+        torch.cuda.synchronize()
+        tq.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = split_sweep(step, images_dev, sub, len(_coords(args)), image_batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        if i == 0:
+            probs, launches = out, {fn.__name__: fn.launches for fn in tq.KERNELS}
+    return probs, secs, launches
+
+
+@contextlib.contextmanager
+def planted_mp_fault(fault, model):
+    """A fault planted in the multi-process image step for its gate to
+    reject: ``"local BatchNorm"`` (each rank normalizes by its own rows),
+    ``"loss over the local count"`` or ``"gradients averaged over the
+    ranks"`` (summed, then divided by the rank count)."""
+    from cellsegmentation_tpu_torch.models.common import sync_batch_norm
+    from cellsegmentation_tpu_torch.train import steps as tsteps
+
+    real, real_grads = tsteps.global_count, tsteps.all_reduce_grads
+
+    def averaged(mesh, params):
+        real_grads(mesh, params)
+        for p in params:
+            if p.grad is not None:
+                p.grad.div_(mesh.size)
+
+    if fault == "local BatchNorm":
+        sync_batch_norm(model, None)
+    elif fault == "loss over the local count":
+        tsteps.global_count = lambda mesh, valid: valid.detach().float().sum()
+    elif fault == "gradients averaged over the ranks":
+        tsteps.all_reduce_grads = averaged
+    try:
+        yield
+    finally:
+        tsteps.global_count, tsteps.all_reduce_grads = real, real_grads
+
+
+def _mp_stage1_reading(args, src, dev, mesh, fault=None, reverse=False, solo=None):
+    """One f32 stage-1 step (SGD, the generator's dropout) of a seeded
+    ResNet-50 on this rank's rows of the global batch (the first
+    MP_STAGE1_BATCH samples; every row with a ``mesh``): (global loss, every
+    trainable gradient, the running statistics), f64 on the host. With
+    ``reverse`` (one rank), the same step on the rows in reverse order,
+    each row keeping its dropout masks: the same sums in another order.
+    With ``solo``, a group of this rank alone, the 1-rank step with its
+    BatchNorm through the multi-rank formula (models/common.py
+    ``_global_batch_norm``) in place of cuDNN's."""
+    import numpy as np
+    import torch
+
+    from cellsegmentation_tpu_torch.core.dtypes import F32_POLICY
+    from cellsegmentation_tpu_torch.models import build_model
+    from cellsegmentation_tpu_torch.parallel.sharding import global_rows
+    from cellsegmentation_tpu_torch.train.schedules import make_schedule
+    from cellsegmentation_tpu_torch.train.state import create_train_state
+    from cellsegmentation_tpu_torch.models.common import sync_batch_norm
+    from cellsegmentation_tpu_torch.models.milnet import IMAGE_HEADS
+    from cellsegmentation_tpu_torch.parallel.mesh import Mesh
+    from cellsegmentation_tpu_torch.train.steps import dropout_generator, make_image_train_step
+
+    model = build_model("resnet50", policy=F32_POLICY, device=dev, seed=args.seed)
+    per = MP_STAGE1_BATCH // (mesh.size if mesh else 1)
+    _, rows = global_rows(mesh, per)
+    batch = _stage1_batch(src, np.arange(MP_STAGE1_BATCH)[rows])
+    masks = None
+    if reverse:
+        batch = {k: v[::-1].copy() for k, v in batch.items()}
+        gen = dropout_generator(args.seed, 0, dev)
+        masks = {k: tuple(m.flip(0) for m in getattr(model, k).draw_masks(
+            MP_STAGE1_BATCH, gen, dev)) for k in IMAGE_HEADS}
+    state = create_train_state(model, "image", make_schedule(None, S1_CHECK_LR, 1, 1),
+                               use_sgd=True, device=dev)
+    step = make_image_train_step(model, seed=args.seed, device=dev, mesh=mesh)
+    if solo is not None:
+        sync_batch_norm(model, Mesh(group=solo))
+    with planted_mp_fault(fault, model):
+        _, metrics = step(state, batch, dropout_masks=masks)
+    params = [p for g in state.optimizer.param_groups for p in g["params"]]
+    grads = torch.cat([p.grad.detach().double().cpu().flatten() for p in params])
+    stats = {k: v.detach().double().cpu() for k, v in model.state_dict().items()
+             if "running_" in k}
+    return float(metrics["loss"]), grads, stats
+
+
+def mp_stage1_gap(got, want):
+    """(loss rel, gradient cosine, gradient norm ratio's gap from 1,
+    statistic gap, within the MP_* limits) of a 2-rank stage-1 reading
+    against the 1-rank one."""
+    (lg, gg, sg), (lc, gc, sc) = got, want
+    rel = abs(lg - lc) / abs(lc)
+    cos = float(gg @ gc / (gg.norm() * gc.norm()))
+    norm = abs(float(gg.norm() / gc.norm()) - 1.0)
+    stat = max(float((sg[k] - sc[k]).abs().max()) / _stat_scale(sc, k) for k in sc)
+    return rel, cos, norm, stat, (rel <= MP_LOSS_RTOL and cos >= MP_GRAD_MIN_COS
+                                  and norm <= MP_GRAD_NORM_RTOL and stat <= MP_STAT_RTOL)
+
+
+def mp_worker(args) -> int:
+    """One rank of [multiproc] (``--mp-rank``): joins the group through
+    ``maybe_initialize`` (CST_* variables from the parent), then the split
+    sweep (timed), a 1-epoch train_stage2 and the stage-1 step with its
+    planted faults; writes its readings to ``<mp-out>/rank<r>.json`` (rank 0
+    also the merged probs)."""
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from cellsegmentation_tpu_torch.parallel.mesh import make_mesh
+    from cellsegmentation_tpu_torch.parallel.multihost import maybe_initialize
+    from cellsegmentation_tpu_torch.train.trainers import train_stage2
+    from cellsegmentation_tpu_torch.utils.logging import RunLogger
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    backend = maybe_initialize(timeout=datetime.timedelta(seconds=MP_TIMEOUT_S))
+    rank, dev = dist.get_rank(), torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    mesh = make_mesh()
+    res = {"rank": rank, "backend": backend, "mesh": mesh.size}
+    src, sub = _mp_source(args)
+    model, step = _mp_sweep_step(args, sub, dev)
+    images_dev = torch.as_tensor(sub.images).to(dev)
+    step(images_dev, np.arange(args.image_batch // 2), np.zeros(args.image_batch // 2, np.int32))
+    probs, secs, launches = _mp_timed_sweeps(args, step, images_dev, sub, args.image_batch,
+                                             dist.barrier)
+    res.update(sweep_s=secs, launches=launches)
+    if rank == 0:
+        np.save(os.path.join(args.mp_out, "probs.npy"), probs)
+
+    from cellsegmentation_tpu_torch.kernels import q8_gemm as tq
+
+    tq.reset_launch_counts()
+    t0 = time.perf_counter()
+    r = train_stage2(model, sub, None, epochs=1, image_batch=args.image_batch,
+                     tile_size=args.tile, interval=args.interval, infer_engine="auto",
+                     record_selection=True, device=dev,
+                     logger=RunLogger(os.path.join(args.mp_out, f"log{rank}"),
+                                      tensorboard=False))
+    res["train_stage2"] = {
+        "s": time.perf_counter() - t0, "loss": r.epoch_stats[0]["loss"],
+        "tiles": r.epoch_stats[0]["train_tiles"],
+        "launches": {fn.__name__: fn.launches for fn in tq.KERNELS},
+        "selection": {k: v.tolist() for k, v in r.selections[0].items()},
+        "fc_tile": [t.detach().cpu().tolist() for t in model.fc_tile.parameters()]}
+    del model, step
+
+    want = _mp_stage1_reading(args, src, dev, None) if rank == 0 else None
+    solo = dist.new_group([0])  # every rank takes part in making a group
+    if rank == 0:
+        res["stage1 rows reversed"] = mp_stage1_gap(
+            _mp_stage1_reading(args, src, dev, None, reverse=True), want)
+        res["stage1 formula"] = mp_stage1_gap(
+            _mp_stage1_reading(args, src, dev, None, solo=solo), want)
+    for fault in (None, *MP_FAULTS):
+        got = _mp_stage1_reading(args, src, dev, mesh, fault)
+        if rank == 0:
+            res[f"stage1 {fault or 'clean'}"] = mp_stage1_gap(got, want)
+    with open(os.path.join(args.mp_out, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def _mp_spawn(args, out_dir, port):
+    """The MP_RANKS worker processes of this script, output to files."""
+    procs = []
+    for rank in range(MP_RANKS):
+        env = dict(os.environ, CST_COORDINATOR_ADDRESS=f"localhost:{port}",
+                   CST_NUM_PROCESSES=str(MP_RANKS), CST_PROCESS_ID=str(rank))
+        log = open(os.path.join(out_dir, f"worker{rank}.log"), "w")
+        cmd = [sys.executable, os.path.abspath(__file__), "--mp-rank", str(rank),
+               "--mp-out", out_dir, "--images", str(args.images),
+               "--image-batch", str(args.image_batch), "--seed", str(args.seed)]
+        procs.append((subprocess.Popen(cmd, env=env, stdout=log,
+                                       stderr=subprocess.STDOUT), log))
+    return procs
+
+
+def _mp_wait(procs, out_dir):
+    """Wait for every worker; the first to fail, or MP_TIMEOUT_S passing,
+    kills the others (a rank left alone would wait at its next collective).
+    Any worker's failure fails the phase, its log's tail in the message."""
+    deadline = time.monotonic() + MP_TIMEOUT_S
+    try:
+        while (any(p.poll() is None for p, _ in procs)
+               and all(p.poll() in (None, 0) for p, _ in procs)
+               and time.monotonic() < deadline):
+            time.sleep(0.5)
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    # the rank that failed by itself first, then any the phase killed
+    for rank, (p, _) in sorted(enumerate(procs), key=lambda rp: rp[1][0].returncode < 0):
+        if p.returncode != 0:
+            with open(os.path.join(out_dir, f"worker{rank}.log")) as f:
+                tail = f.read()[-3000:]
+            raise PhaseError(f"rank {rank} exited {p.returncode}:\n{tail}")
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _nccl_probe():
+    """One world-size-1 group through maybe_initialize on the card: NCCL
+    (every rank owns its card), one all-reduce, then torn down."""
+    import torch
+    import torch.distributed as dist
+
+    from cellsegmentation_tpu_torch.parallel.multihost import maybe_initialize
+
+    env = {"CST_COORDINATOR_ADDRESS": f"localhost:{_free_port()}",
+           "CST_NUM_PROCESSES": "1", "CST_PROCESS_ID": "0"}
+    os.environ.update(env)
+    try:
+        backend = maybe_initialize()
+        t = torch.full((4,), 3.0, device="cuda")
+        dist.all_reduce(t)
+        torch.cuda.synchronize()
+        check(backend == "nccl" and dist.get_backend() == "nccl",
+              f"world size 1 on the card chose {backend}, want nccl")
+        check(bool((t == 3.0).all()), f"world-1 all-reduce gave {t.tolist()}")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k in env:
+            os.environ.pop(k, None)
+    return backend
+
+
+def phase_multiproc(args, card):
+    """[multiproc]: two ranks share the card over gloo (NCCL refuses two
+    ranks on one GPU): the split sweep (q8dg, auto) of train_stage2 on the
+    [slice] source's first 64 samples, a 1-epoch train_stage2, one stage-1
+    step at global batch MP_STAGE1_BATCH with its planted faults; held
+    against this process's 1-process runs."""
+    import numpy as np
+    import torch
+
+    t_phase = time.perf_counter()
+    backend = _nccl_probe()
+    print(f"[multiproc] world size 1 through maybe_initialize: backend {backend}")
+    out_dir = tempfile.mkdtemp(prefix="cst_mp_")
+    _mp_wait(_mp_spawn(args, out_dir, _free_port()), out_dir)
+    res = [json.load(open(os.path.join(out_dir, f"rank{r}.json"))) for r in range(MP_RANKS)]
+    merged = np.load(os.path.join(out_dir, "probs.npy"))
+    for r in res:
+        check(r["backend"] == "gloo", f"rank {r['rank']}: backend {r['backend']}")
+    print(f"[multiproc] {MP_RANKS} ranks on {card}: backend {res[0]['backend']} "
+          f"(ranks share the card), mesh over {res[0]['mesh']} ranks")
+    n_calls = math.ceil(MP_SAMPLES / args.image_batch)  # local calls per rank
+    for r in res:
+        print(f"[multiproc] rank {r['rank']} launches, split sweep of {MP_SAMPLES} "
+              f"samples ({n_calls} calls of {args.image_batch // MP_RANKS} images): "
+              f"{r['launches']}; train_stage2 epoch: {r['train_stage2']['launches']}")
+        for name, per in (("q8_conv3_tap", 1), ("q8_matmul", 8), ("q8_matmul_px", 20)):
+            check(r["launches"][name] == per * n_calls > 0,
+                  f"rank {r['rank']}: {name} launched {r['launches'][name]}, "
+                  f"want {per} x {n_calls}")
+            check(r["train_stage2"]["launches"][name] >= per * n_calls,
+                  f"rank {r['rank']}: train_stage2 launched {name} "
+                  f"{r['train_stage2']['launches'][name]} times")
+
+    # 1-process references in this process, same seeds and calibration
+    src, sub = _mp_source(args)
+    model, step = _mp_sweep_step(args, sub, "cuda")
+    images_dev = torch.as_tensor(sub.images).cuda()
+    step(images_dev, np.arange(args.image_batch // 2), np.zeros(args.image_batch // 2, np.int32))
+    half, _, _ = _mp_timed_sweeps(args, step, images_dev, sub, args.image_batch // MP_RANKS)
+    full, secs, _ = _mp_timed_sweeps(args, step, images_dev, sub, args.image_batch)
+    check(merged.shape == (MP_SAMPLES, len(_coords(args))) and bool(np.isfinite(merged).all()),
+          f"merged probs {merged.shape}")
+    same = bool(np.array_equal(merged, half))
+    print(f"[multiproc] merged 2-rank sweep vs a 1-process sweep at the per-rank "
+          f"batch {args.image_batch // MP_RANKS}: bit-equal {same} (max |diff| "
+          f"{float(np.abs(merged - half).max()):.3g})")
+    check(same, "the merged 2-rank sweep differs from the per-rank-batch sweep")
+    mx, mean, rank, ok = _gate(_logodds(merged), _logodds(full))
+    print(f"[multiproc] merged vs the 1-process sweep at batch {args.image_batch}, "
+          f"log-odds: max {mx:.5f} mean {mean:.6f} (limits {CARD_CPU_MAX} / "
+          f"{CARD_CPU_MEAN}), min rank corr {min(rank):.4f}")
+    check(ok, f"merged vs full-batch sweep: max {mx:.5f} mean {mean:.6f}")
+    ips2 = MP_SAMPLES / float(np.median(res[0]["sweep_s"]))
+    ips1 = MP_SAMPLES / float(np.median(secs))
+    print(f"[multiproc] sweep images/s (median of {MP_SWEEPS}): 2 ranks time-slicing "
+          f"the card {ips2:.1f} (rank seconds {[round(s, 4) for s in res[0]['sweep_s']]}) "
+          f"vs 1 process at batch {args.image_batch} {ips1:.1f} ({ips2 / ips1:.3f}x)")
+
+    s2 = [r["train_stage2"] for r in res]
+    check(s2[0]["selection"] == s2[1]["selection"], "the ranks selected other tiles")
+    check(s2[0]["fc_tile"] == s2[1]["fc_tile"], "fc_tile differs between the ranks")
+    check(np.isfinite(s2[0]["loss"]), f"train_stage2 loss {s2[0]['loss']}")
+    print(f"[multiproc] train_stage2, 1 epoch over {MP_RANKS} ranks: "
+          f"{s2[0]['tiles']} tiles, loss {s2[0]['loss']:.5f}, {s2[0]['s']:.1f} s; "
+          "selections and fc_tile bit-identical across ranks")
+
+    for name, what in (("rows reversed", "its rows reversed (the same sums in another "
+                                         "order)"),
+                       ("formula", "its BatchNorm through the multi-rank formula "
+                                   "(one rank's group)")):
+        rel, cos, norm, stat, _ = res[0][f"stage1 {name}"]
+        print(f"[multiproc] floor: the 1-rank step with {what} vs the 1-rank step: "
+              f"loss rel {rel:.3g}, grad cos {cos:.9f}, grad norm gap {norm:.3g}, "
+              f"stats gap {stat:.3g}")
+    rel, cos, norm, stat, ok = res[0]["stage1 clean"]
+    print(f"[multiproc] stage-1 step, {MP_RANKS} ranks x {MP_STAGE1_BATCH // MP_RANKS} "
+          f"vs 1 rank x {MP_STAGE1_BATCH} (f32): loss rel {rel:.3g}, grad cos "
+          f"{cos:.9f}, grad norm gap {norm:.3g}, stats gap {stat:.3g} (limits "
+          f"{MP_LOSS_RTOL} / {MP_GRAD_MIN_COS} / {MP_GRAD_NORM_RTOL} / {MP_STAT_RTOL})")
+    check(ok, "the 2-rank stage-1 step differs from the 1-rank step")
+    for fault in MP_FAULTS:
+        rel, cos, norm, stat, ok = res[0][f"stage1 {fault}"]
+        print(f"[multiproc] planted fault '{fault}': loss rel {rel:.3g}, grad cos "
+              f"{cos:.6f}, grad norm gap {norm:.3g}, stats gap {stat:.3g}: "
+              f"{'REJECTED' if not ok else 'passed'}")
+        check(not ok, f"the stage-1 gate passed the planted fault '{fault}'")
+    del model, step, images_dev
+    torch.cuda.empty_cache()
+    print(f"[multiproc] {time.perf_counter() - t_phase:.1f} s")
+
+
 def _coords(args):
     from cellsegmentation_tpu_torch.ops.tiles import tile_grid
 
@@ -3542,6 +4006,9 @@ def main(argv=None) -> int:
     ap.add_argument("--val-images", type=int, default=16,
                     help="base images of the [train] phase's validation source")
     ap.add_argument("--epochs", type=int, default=2, help="[train] epochs")
+    # one rank of [multiproc], spawned by the phase itself
+    ap.add_argument("--mp-rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--mp-out", type=str, default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     args.hw, args.tile, args.interval = 299, 32, 20
 
@@ -3551,6 +4018,8 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 2
+    if args.mp_rank is not None:
+        return mp_worker(args)
 
     from cellsegmentation_tpu_torch.data import LystoDataSource, make_synthetic_arrays
     from cellsegmentation_tpu_torch.kernels import q8_gemm as tq
@@ -3658,6 +4127,9 @@ def main(argv=None) -> int:
 
         phase = "effnet"
         phase_effnet(args, card, src)
+
+        phase = "multiproc"
+        phase_multiproc(args, card)
 
         phase = "profile"
         phase_profile(step, src.images[: args.image_batch])

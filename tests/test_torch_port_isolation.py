@@ -76,6 +76,14 @@ def test_port_imports_no_jax(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+def test_import_check_covers_parallel_and_the_converter():
+    rel = {p.relative_to(ROOT).as_posix() for p in _port_files()}
+    assert {"cellsegmentation_tpu_torch/parallel/multihost.py",
+            "cellsegmentation_tpu_torch/parallel/mesh.py",
+            "cellsegmentation_tpu_torch/parallel/sharding.py",
+            "cellsegmentation_tpu_torch/utils/torch_convert.py"} <= rel
+
+
 def test_import_check_sees_lazy_and_dotted_imports(tmp_path):
     probe = tmp_path / "probe.py"
     probe.write_text(
