@@ -64,6 +64,11 @@ def adjust_depth(num_layers: int, depth_mult: float) -> int:
     return int(math.ceil(num_layers * depth_mult))
 
 
+def stage_depths(depth_mult: float) -> tuple:
+    """The MBConv blocks of each of the seven stages at ``depth_mult``."""
+    return tuple(adjust_depth(row[5], depth_mult) for row in STAGE_TABLE)
+
+
 class ConvNormSiLU(nn.Sequential):
     """Conv (no bias) + BatchNorm [+ SiLU]; keys ``0.weight`` / ``1.*`` as
     in torchvision's ``Conv2dNormActivation``. ``forward`` takes and
@@ -170,8 +175,8 @@ class EfficientNetEncoder(nn.Module):
         super().__init__()
         self.width_mult, self.depth_mult = width_mult, depth_mult
         self.policy = policy
-        depths = [adjust_depth(row[5], depth_mult) for row in STAGE_TABLE]
-        self.stage_depths = tuple(depths)
+        depths = stage_depths(depth_mult)
+        self.stage_depths = depths
         total = sum(depths)
         stem = adjust_channels(STAGE_TABLE[0][3], width_mult)
         features = [ConvNormSiLU(3, stem, 3, 2, policy=policy)]

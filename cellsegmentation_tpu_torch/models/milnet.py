@@ -134,6 +134,20 @@ class MILNet(nn.Module):
             child.requires_grad_(name in partitions)
 
 
+@torch.no_grad()
+def pin_constant_count_head(model: MILNet, value: float = 5.0) -> None:
+    """Pin the image-regression head to a constant: zero its final Linear's
+    weight and set its bias to ``value`` (in place).
+
+    Test and benchmark fixture utility: a random-init head emits
+    large-negative pre-relu activations on real images, so counts round to
+    0 and the stage-3 artifact-clearing gate (counts != 0) drops every
+    tile, making drawing-path fixtures vacuous."""
+    last = [m for m in getattr(model, IMAGE_REG_KEY) if isinstance(m, nn.Linear)][-1]
+    last.weight.zero_()
+    last.bias.fill_(value)
+
+
 def init_milnet(model: MILNet, seed: int = 0) -> MILNet:
     """Seeded initialization from a ``torch.Generator`` (on the CPU, so the
     weights do not depend on the device the model later moves to)."""

@@ -1,4 +1,5 @@
-"""Checkpoints in torch format, with partition-filtered stage handoff.
+"""Checkpoints: the port writes torch files and reads those and the JAX
+package's flax msgpack ones, with partition-filtered stage handoff.
 
 The payload is the JAX package's (and the reference's): a dict of
 ``mode``, ``epoch``, ``encoder``, ``step``, ``state_dict``, ``optimizer``
@@ -19,23 +20,41 @@ prefix:
   of, raises: a load never drops weights silently.
 
 ``optimizer`` is ``optimizer.state_dict()``. Schedules are pure functions
-of the step, so only the step counter is stored. The port reads and writes
-its own files only, not the JAX package's msgpack ones.
+of the step, so only the step counter is stored.
+
+``load_checkpoint`` tells the two formats apart by content (both packages
+name their files ``.ckpt``): a torch file is a zip, a JAX one a msgpack
+map (utils/flax_msgpack.py). A JAX file comes back as the port's payload:
+``state_dict`` in the port's names (utils/jax_weights.py, an
+EfficientNet's blocks placed by its registry entry's stage depths), the
+other fields as written, and ``optimizer`` as a ``JaxOptimizerState``,
+which the trainers convert to their torch optimizer's state where the
+model and stage are known. A JAX subtree the port has no counterpart of, a
+truncated file or a file of neither format raises. ``save_jax_checkpoint``
+writes the JAX package's file of a port model and optimizer.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import Optional, Sequence
 
 import torch
 
+from cellsegmentation_tpu_torch.models import encoder_stage_depths
 from cellsegmentation_tpu_torch.models.milnet import (
     ENCODER_KEY,
     IMAGE_CLS_KEY,
     IMAGE_REG_KEY,
     SEG_KEY,
     TILE_KEY,
+)
+from cellsegmentation_tpu_torch.utils.flax_msgpack import packb, unpackb
+from cellsegmentation_tpu_torch.utils.jax_weights import (
+    jax_to_state_dict,
+    state_dict_to_jax,
+    torch_to_optax,
 )
 from cellsegmentation_tpu_torch.utils.torch_convert import (
     is_reference_layout,
@@ -49,6 +68,16 @@ STAGE_SAVE_PARTITIONS = {
     "segment": (ENCODER_KEY, IMAGE_CLS_KEY, IMAGE_REG_KEY, TILE_KEY, SEG_KEY),  # pt3
 }
 STAGE_PREFIX = {"image": "pt1", "tile": "pt2", "segment": "pt3"}
+JAX_FIELDS = ("mode", "epoch", "encoder", "step", "state_dict", "optimizer", "extra")
+
+
+@dataclasses.dataclass
+class JaxOptimizerState:
+    """A JAX checkpoint's optimizer: ``flax.serialization.to_state_dict`` of
+    its optax state, nested dicts of numpy leaves
+    (``utils.jax_weights.optax_to_torch`` converts it)."""
+
+    tree: dict
 
 
 def _host(obj):
@@ -79,20 +108,69 @@ def save_checkpoint(path_or_dir: str, mode: str, epoch: int, encoder: str,
         "optimizer": _host(optimizer_state),
         "extra": extra or {},
     }
-    if os.path.isdir(path_or_dir) or not path_or_dir.endswith(".ckpt"):
-        os.makedirs(path_or_dir, exist_ok=True)
-        path = os.path.join(
-            path_or_dir, f"{prefix or STAGE_PREFIX[mode]}_{epoch}epochs.ckpt"
-        )
-    else:
-        path = path_or_dir
+    path = _ckpt_path(path_or_dir, mode, epoch, prefix)
     torch.save(payload, path)
     return path
 
 
+def _ckpt_path(path_or_dir: str, mode: str, epoch: int, prefix: Optional[str]) -> str:
+    if os.path.isdir(path_or_dir) or not path_or_dir.endswith(".ckpt"):
+        os.makedirs(path_or_dir, exist_ok=True)
+        return os.path.join(
+            path_or_dir, f"{prefix or STAGE_PREFIX[mode]}_{epoch}epochs.ckpt"
+        )
+    return path_or_dir
+
+
+def save_jax_checkpoint(path_or_dir: str, mode: str, epoch: int, encoder: str,
+                        model: nn.Module, optimizer=None, step: int = 0,
+                        extra: Optional[dict] = None,
+                        prefix: Optional[str] = None) -> str:
+    """Write the file the JAX package's ``save_checkpoint`` writes for the
+    same state: ``model``'s stage partitions in the JAX layout and
+    ``optimizer`` (an Adam or SGD over ``model``'s trainable parameters) as
+    its optax state, flax msgpack. Paths as ``save_checkpoint``'s."""
+    payload = {
+        "mode": mode,
+        "epoch": epoch,
+        "encoder": encoder,
+        "step": step,
+        "state_dict": state_dict_to_jax(model, STAGE_SAVE_PARTITIONS[mode]),
+        "optimizer": None if optimizer is None else torch_to_optax(optimizer, model),
+        "extra": extra or {},
+    }
+    path = _ckpt_path(path_or_dir, mode, epoch, prefix)
+    with open(path, "wb") as f:
+        f.write(packb(payload))
+    return path
+
+
+def _is_msgpack_map(head: bytes) -> bool:
+    return bool(head) and (0x80 <= head[0] <= 0x8F or head[0] in (0xDE, 0xDF))
+
+
 def load_checkpoint(path: str) -> dict:
-    """A checkpoint's payload, every tensor on the CPU."""
-    return torch.load(path, map_location="cpu", weights_only=True)
+    """A checkpoint's payload, every tensor on the CPU: a torch file as
+    written, a JAX one converted (module docstring)."""
+    with open(path, "rb") as f:
+        head = f.read(4)
+    if head == b"PK\x03\x04":
+        return torch.load(path, map_location="cpu", weights_only=True)
+    if not _is_msgpack_map(head):
+        raise ValueError(f"{path} is neither a torch checkpoint (a zip) nor a JAX "
+                         f"one (a msgpack map): it opens with {head!r}")
+    with open(path, "rb") as f:
+        raw = unpackb(f.read())
+    missing = [k for k in JAX_FIELDS if k not in raw]
+    if missing:
+        raise ValueError(f"{path}: a msgpack file without the JAX checkpoint's {missing}")
+    sd, skipped = jax_to_state_dict(raw["state_dict"], encoder_stage_depths(raw["encoder"]))
+    if skipped:
+        raise ValueError(f"{path}: the JAX subtree(s) {skipped} have no counterpart "
+                         "in the port's model")
+    opt = raw["optimizer"]
+    return {**{k: raw[k] for k in JAX_FIELDS}, "state_dict": sd,
+            "optimizer": None if opt is None else JaxOptimizerState(opt)}
 
 
 def merge_loaded(target: dict, loaded: dict) -> dict:

@@ -47,7 +47,7 @@ from cellsegmentation_tpu_torch.parallel.sharding import (
     replicate_tree,
     shard_batch,
 )
-from cellsegmentation_tpu_torch.train.checkpoint import save_checkpoint
+from cellsegmentation_tpu_torch.train.checkpoint import JaxOptimizerState, save_checkpoint
 from cellsegmentation_tpu_torch.train.schedules import make_schedule
 from cellsegmentation_tpu_torch.train.state import TrainState, create_train_state
 from cellsegmentation_tpu_torch.train.steps import (
@@ -58,6 +58,7 @@ from cellsegmentation_tpu_torch.train.steps import (
     make_tile_infer_step,
     make_tile_train_step,
 )
+from cellsegmentation_tpu_torch.utils.jax_weights import optax_to_torch
 from cellsegmentation_tpu_torch.utils.logging import RunLogger
 from cellsegmentation_tpu_torch.utils.profiling import trace
 
@@ -177,11 +178,15 @@ def split_sweep(stack_infer_fn, images_dev, source, n_tiles: int,
 
 
 def _restore_optimizer(state: TrainState, resume_opt_state) -> None:
-    """Load a checkpoint's optimizer state; one another optimizer or stage
-    wrote is refused with a warning, and the run goes on with fresh state."""
+    """Load a checkpoint's optimizer state, a JAX file's converted first;
+    one another optimizer or stage wrote is refused with a warning, and the
+    run goes on with fresh state (never a partial load)."""
     if resume_opt_state is None:
         return
     try:
+        if isinstance(resume_opt_state, JaxOptimizerState):
+            resume_opt_state = optax_to_torch(resume_opt_state.tree, state.optimizer,
+                                              state.model)
         state.optimizer.load_state_dict(resume_opt_state)
     except ValueError as e:
         warnings.warn(

@@ -60,7 +60,17 @@ seeded synthetic LYSTO images:
    scaled by keep, flips dropped) that this gate must reject; the pt1
    checkpoint loaded into a fresh model (equal state, bit-equal counts)
    and a q8dg sweep batch on its encoder; a profile of one train step;
-7a. alternative: ``make_alternative_train_step`` on ResNet-50 (a tile CE
+7a. jaxckpt: the [stage1] model and its Adam state written as the JAX
+   package's checkpoints (flax msgpack, by the port's own writer) with
+   their file sizes and read/convert seconds: the pt2 loaded as test_tile
+   loads it and swept with engine auto on 64 samples, counted (1 / 8 / 20
+   q8_conv3_tap / q8_matmul / q8_matmul_px a batch), its state and probs
+   bit-equal to the in-memory model's; one stage-1 step resumed from the
+   JAX-format pt1 bit-equal to one resumed from the port's own pt1 of the
+   same state (deterministic algorithms); three planted faults (a conv
+   kernel without the HWIO transpose, an Adam nu leaf dropped, a truncated
+   file) that these gates must reject;
+7b. alternative: ``make_alternative_train_step`` on ResNet-50 (a tile CE
    update, then an image CE + MSE update, on one model), 3 steps on the
    card, then one f32 step card vs CPU on the stage-1 gate's images and 64
    of their tiles, and a planted fault (the image half reading the
@@ -162,8 +172,8 @@ seeded synthetic LYSTO images:
 15. profile: device time by kernel over one sweep step: 29 launches of the
    wgmma kernel under its own name and no other hand-written kernel;
 16. one JSON line with every kernel's launches and times (the q8g path's,
-   q8dg's (1, 0) and (1, 1) splits' and each ResNeXt's kernels as entries
-   of their own, ``"path"``);
+   the JAX-format pt2's sweep's, q8dg's (1, 0) and (1, 1) splits' and each
+   ResNeXt's kernels as entries of their own, ``"path"``);
 17. last line: {"ok": true, "device": {...}}.
 
 Run from the repository root: ``python3 chip_smoke.py`` (one card). Exits
@@ -1440,6 +1450,236 @@ def phase_stage1(args, card, src, slice_gap):
     torch.cuda.synchronize()
     profile_rows("stage1", f"one train step of {STAGE1_BATCH} images",
                   lambda: step(state, batch), top=12)
+    return model, res.state, train
+
+
+# [jaxckpt]: the [stage1] model and Adam state written as the JAX package's
+# pt1 and pt2 (flax msgpack, by the port's writer: the card's machine has no
+# JAX), read back through the CLIs' load_stage_checkpoint; the pt2 swept on
+# the [slice] source's first JAXCKPT_SAMPLES samples, the pt1 resumed for one
+# stage-1 step beside the port's own pt1 of the same state. Tolerance 0: the
+# layouts move bits only, so the loaded state, the sweep's probs and the
+# resumed step must be bit-equal.
+JAXCKPT_SAMPLES = 64
+
+
+def _cli_args():
+    """The CLIs' arguments load_stage_checkpoint reads: card 0, bf16."""
+    return argparse.Namespace(device=0, f32=False)
+
+
+def _pt2_verdict(path, args, sub, ref_step, ref_state, ref_probs):
+    """The pt2 at ``path`` loaded as test_tile loads it and swept with engine
+    auto (the reference step's calibration): None when its state, its
+    launches (1 / 8 / 20 tap / q8_matmul / q8_matmul_px a batch) and its
+    probs are the in-memory model's, else what differs. Returns (verdict,
+    launches, load seconds)."""
+    import numpy as np
+    import torch
+
+    from cellsegmentation_tpu_torch.bench.sweep import counted
+    from cellsegmentation_tpu_torch.cli import common
+    from cellsegmentation_tpu_torch.kernels import q8_gemm as tq
+    from cellsegmentation_tpu_torch.train.checkpoint import STAGE_SAVE_PARTITIONS
+    from cellsegmentation_tpu_torch.train.steps import make_tile_infer_step
+
+    t0 = time.perf_counter()
+    try:
+        model, _ = common.load_stage_checkpoint(path, _cli_args(),
+                                                partitions=STAGE_SAVE_PARTITIONS["tile"])
+    except (ValueError, RuntimeError) as e:
+        return f"load raised {type(e).__name__}: {' '.join(str(e).split())[:200]}", {}, 0.0
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    sd = model.state_dict()
+    differ = [k for k in ref_state if not torch.equal(sd[k], ref_state[k])]
+    step = make_tile_infer_step(model, args.tile, _coords(args), engine="auto",
+                                device="cuda", scales=ref_step.engine.scales)
+    per = []
+    tq.reset_launch_counts()
+    probs, _ = _sweep(sub, counted(step, per), args)
+    launches = {fn.__name__: fn.launches for fn in tq.KERNELS}
+    want = {"q8_matmul": 8, "q8_matmul_px": 20, "q8_conv3_tap": 1, "q8_conv3_rowtap": 0}
+    if differ:
+        return f"{len(differ)} state entries differ, first {differ[0]}", launches, load_s
+    if step.resolved_engine != "q8dg" or any(b != want for b in per):
+        return f"engine {step.resolved_engine}, launches a batch {per}", launches, load_s
+    if not np.array_equal(probs, ref_probs):
+        return (f"probs differ, max {np.abs(probs - ref_probs).max():.3g}", launches,
+                load_s)
+    return None, launches, load_s
+
+
+def _resume_reading(path, args, batch, n_steps):
+    """One stage-1 step after resuming from the pt1 at ``path`` as
+    ``train_image -r`` does (load_stage_checkpoint, the file's step, its
+    optimizer state), under deterministic algorithms: (state dict, loss,
+    warnings, seconds to convert and load the optimizer state)."""
+    import warnings
+
+    import torch
+
+    from cellsegmentation_tpu_torch.cli import common
+    from cellsegmentation_tpu_torch.train.schedules import make_schedule
+    from cellsegmentation_tpu_torch.train.state import create_train_state
+    from cellsegmentation_tpu_torch.train.steps import make_image_train_step
+    from cellsegmentation_tpu_torch.train.trainers import _restore_optimizer
+
+    model, ck = common.load_stage_checkpoint(path, _cli_args())
+    state = create_train_state(model, "image", make_schedule(None, STAGE1_LR, STAGE1_EPOCHS,
+                                                             n_steps), device="cuda")
+    state.step = ck["step"]
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        t0 = time.perf_counter()
+        _restore_optimizer(state, ck["optimizer"])
+        torch.cuda.synchronize()
+        opt_s = time.perf_counter() - t0
+    step = make_image_train_step(model, seed=args.seed, device="cuda")
+    with deterministic_algorithms():
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+    sd = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    return sd, float(metrics["loss"]), [str(w.message)[:160] for w in caught], opt_s
+
+
+def _resume_verdict(got, want):
+    """None when the resumed step (a _resume_reading) is the reference's bit
+    for bit, with no warning, else what differs."""
+    import torch
+
+    sd, loss, warned, _ = got
+    if warned:
+        return f"warned: {warned[0]}"
+    differ = [k for k in want[0] if not torch.equal(sd[k], want[0][k])]
+    if differ or loss != want[1]:
+        return f"{len(differ)} entries differ (first {differ[:1]}), loss {loss} vs {want[1]}"
+    return None
+
+
+def _rewritten(path, out, edit):
+    """A copy of the JAX file at ``path`` with ``edit`` applied to its tree."""
+    from cellsegmentation_tpu_torch.utils.flax_msgpack import packb, unpackb
+
+    with open(path, "rb") as f:
+        raw = unpackb(f.read())
+    edit(raw)
+    with open(out, "wb") as f:
+        f.write(packb(raw))
+    return out
+
+
+def phase_jaxckpt(args, card, model, s1_state, train, src):
+    """The JAX package's checkpoint format on the card: [stage1]'s model and
+    Adam state as JAX-format pt1 and pt2, the pt2's sweep and the pt1's
+    resumed step against the in-memory model's and the port-format pt1's,
+    and three planted faults that must be rejected. Returns the counted
+    sweep's launches."""
+    import numpy as np
+    import torch
+
+    from cellsegmentation_tpu_torch.data.lysto import SubsetSource
+    from cellsegmentation_tpu_torch.ops.infer_engine import pick_calib_images
+    from cellsegmentation_tpu_torch.train import checkpoint as ckpt_mod
+    from cellsegmentation_tpu_torch.train.schedules import make_schedule
+    from cellsegmentation_tpu_torch.train.state import create_train_state
+    from cellsegmentation_tpu_torch.train.steps import make_tile_infer_step
+    from cellsegmentation_tpu_torch.utils.flax_msgpack import unpackb
+
+    t_phase = time.perf_counter()
+    sub = SubsetSource(src, np.arange(JAXCKPT_SAMPLES))
+    n_batches = math.ceil(JAXCKPT_SAMPLES / args.image_batch)
+    n_steps = math.ceil(len(train) / STAGE1_BATCH)
+    # the pt2: the stage-1 model with the tile head quieted, a fresh tile Adam
+    pt2_model = quiet_head(copy.deepcopy(model))
+    tile_state = create_train_state(pt2_model, "tile", make_schedule(None, 1e-3, 1, 1),
+                                    device="cuda")
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.perf_counter()
+        pt1 = ckpt_mod.save_jax_checkpoint(f"{out}/pt1_{STAGE1_EPOCHS}epochs.ckpt", "image",
+                                           STAGE1_EPOCHS, "resnet50", model,
+                                           s1_state.optimizer, step=s1_state.step)
+        pt1_s = time.perf_counter() - t0
+        pt2 = ckpt_mod.save_jax_checkpoint(f"{out}/pt2_1epochs.ckpt", "tile", 1, "resnet50",
+                                           pt2_model, tile_state.optimizer, step=0)
+        port_pt1 = ckpt_mod.save_checkpoint(f"{out}/port_pt1.ckpt", "image", STAGE1_EPOCHS,
+                                            "resnet50", model.state_dict(),
+                                            s1_state.optimizer.state_dict(),
+                                            step=s1_state.step)
+        for name, path in (("pt1", pt1), ("pt2", pt2)):
+            t0 = time.perf_counter()
+            with open(path, "rb") as f:
+                unpackb(f.read())
+            read_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            ck = ckpt_mod.load_checkpoint(path)
+            both_s = time.perf_counter() - t0
+            check(isinstance(ck["optimizer"], ckpt_mod.JaxOptimizerState),
+                  f"{name}: the optimizer is not the JAX form")
+            print(f"[jaxckpt] JAX-format {name}: {os.path.getsize(path)} bytes "
+                  f"({len(ck['state_dict'])} entries); read and decode {read_s:.3f} s, "
+                  f"read, decode and convert to the port's state dict {both_s:.3f} s"
+                  + (f"; written in {pt1_s:.3f} s" if name == "pt1" else ""))
+
+        # the stage-2 handoff and serving: the pt2 through test_tile's load
+        ref_step = make_tile_infer_step(pt2_model, args.tile, _coords(args), engine="auto",
+                                        calib_images=pick_calib_images(src.images),
+                                        device="cuda")
+        check(ref_step.resolved_engine == "q8dg", f"engine {ref_step.resolved_engine}")
+        warm_flips(ref_step, sub, args.image_batch)
+        ref_probs, _ = _sweep(sub, ref_step, args)
+        parts = ckpt_mod.STAGE_SAVE_PARTITIONS["tile"]
+        ref_state = {k: v for k, v in pt2_model.state_dict().items()
+                     if k.split(".", 1)[0] in parts}
+        verdict, launches, load_s = _pt2_verdict(pt2, args, sub, ref_step, ref_state,
+                                                 ref_probs)
+        print(f"[jaxckpt] pt2 through load_stage_checkpoint on the card in {load_s:.3f} s "
+              f"(read, convert, build, restore); q8dg sweep of {JAXCKPT_SAMPLES} samples, "
+              f"launches over {n_batches} image batches {launches}; state and probs "
+              f"against the in-memory model: {verdict or 'bit-equal'}")
+        check(verdict is None, f"the JAX-format pt2: {verdict}")
+
+        # resume: one stage-1 step from the JAX-format pt1 and from the port's
+        batch = batch_of(train, np.arange(STAGE1_BATCH))
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+        want = _resume_reading(port_pt1, args, batch, n_steps)
+        got = _resume_reading(pt1, args, batch, n_steps)
+        verdict = _resume_verdict(got, want)
+        print(f"[jaxckpt] one stage-1 step (batch {STAGE1_BATCH}, deterministic algorithms) "
+              f"resumed from the JAX-format pt1 (Adam state converted and loaded in "
+              f"{got[3]:.3f} s) against the port-format pt1's: loss {got[1]:.6f} vs "
+              f"{want[1]:.6f}; {verdict or 'bit-equal (tolerance 0)'}")
+        check(verdict is None, f"the resumed step from the JAX-format pt1: {verdict}")
+
+        # planted faults, each of which a gate must reject
+        def hwio_dropped(raw):
+            conv = raw["state_dict"]["params"]["encoder"]["layer1_0"]["ConvBNAct_1"]["Conv_0"]
+            conv["kernel"] = np.ascontiguousarray(np.transpose(conv["kernel"], (3, 2, 0, 1)))
+
+        def nu_leaf_dropped(raw):
+            core = raw["optimizer"]["inner_states"]["train"]["inner_state"]["1"]["0"]
+            del core["nu"]["encoder"]["layer1_0"]["ConvBNAct_0"]["Conv_0"]["kernel"]
+
+        cut = f"{out}/pt2_cut.ckpt"
+        with open(pt2, "rb") as f, open(cut, "wb") as g:
+            g.write(f.read()[: os.path.getsize(pt2) // 2])
+        faults = {
+            "a conv kernel written without the HWIO transpose": _pt2_verdict(
+                _rewritten(pt2, f"{out}/pt2_oihw.ckpt", hwio_dropped), args, sub, ref_step,
+                ref_state, ref_probs)[0],
+            "an Adam nu leaf dropped": _resume_verdict(_resume_reading(
+                _rewritten(pt1, f"{out}/pt1_nu.ckpt", nu_leaf_dropped), args, batch,
+                n_steps), want),
+            "a truncated pt2": _pt2_verdict(cut, args, sub, ref_step, ref_state,
+                                            ref_probs)[0],
+        }
+    for fault, verdict in faults.items():
+        print(f"[jaxckpt] planted fault ({fault}): "
+              f"{'passes' if verdict is None else 'rejected: ' + verdict}")
+    for fault, verdict in faults.items():
+        check(verdict is not None, f"a planted JAX-checkpoint fault passes: {fault}")
+    print(f"[jaxckpt] phase {time.perf_counter() - t_phase:.1f} s on {card}")
+    return launches
 
 
 class _KeepLog:
@@ -3673,7 +3913,11 @@ def main(argv=None) -> int:
         phase_train(args, card, base, src)
 
         phase = "stage1"
-        phase_stage1(args, card, src, slice_gap)
+        s1_model, s1_state, s1_train = phase_stage1(args, card, src, slice_gap)
+
+        phase = "jaxckpt"
+        launches_jax = phase_jaxckpt(args, card, s1_model, s1_state, s1_train, src)
+        del s1_model, s1_state, s1_train
 
         phase = "alternative"
         phase_alternative(args, card)
@@ -3733,6 +3977,11 @@ def main(argv=None) -> int:
                             cudnn_ms=stats_q8g[fn]["cudnn_ms"] if fn is tq.q8_conv3_tap
                             else None)
                 for fn in tq.KERNELS if launches_q8g[fn.__name__]]
+    # the JAX-format pt2's counted sweep in [jaxckpt]: q8dg at (2, 0), the
+    # calls of [kernels]
+    kernels += [_kernel_row(fn, stats[fn], launches_jax[fn.__name__], path="jaxckpt pt2",
+                            cudnn_ms=stats[fn]["cudnn_ms"] if fn in threes else None)
+                for fn in tq.KERNELS if launches_jax[fn.__name__]]
     # q8dg's (1, 0) and (1, 1) splits: their counted sweeps and the calls of
     # one step each in [variants]
     for name in ("1,0", "1,1"):

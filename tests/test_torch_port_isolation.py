@@ -2,7 +2,8 @@
 
 - No module of ``cellsegmentation_tpu_torch`` and no line of
   ``chip_smoke.py`` or ``tools/sm90_tile_shapes.py`` imports ``jax``,
-  ``flax`` or the JAX package.
+  ``flax``, ``msgpack`` (the card's machine has none; the port reads and
+  writes flax's msgpack itself) or the JAX package.
 - Entry points run on the CUDA card by default: without one they raise,
   unless the caller passes ``device="cpu"``; the CLIs, unless
   ``CST_PLATFORM=cpu`` is set.
@@ -48,7 +49,7 @@ from cellsegmentation_tpu_torch.train.steps import (
 from cellsegmentation_tpu_torch.train.trainers import train_stage1, train_stage2
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "cellsegmentation_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "cellsegmentation_tpu")
 
 
 def _imported_roots(path: Path) -> list[tuple[int, str]]:
@@ -91,6 +92,47 @@ def test_import_check_covers_the_benchmark():
     assert {f"cellsegmentation_tpu_torch/bench/{m}.py" for m in (
         "__init__", "__main__", "common", "faults", "gates", "host", "reference", "roofline",
         "spread", "stage1", "sweep", "tracing")} <= rel
+
+
+def test_import_check_covers_the_checkpoint_readers():
+    rel = {p.relative_to(ROOT).as_posix() for p in _port_files()}
+    assert {f"cellsegmentation_tpu_torch/{m}.py" for m in (
+        "utils/flax_msgpack", "utils/jax_weights", "train/checkpoint")} <= rel
+
+
+def test_jax_checkpoints_need_no_msgpack_flax_or_jax(tmp_path):
+    """In a process where msgpack, flax, jax, optax and the JAX package
+    cannot be imported, the port writes a JAX-format pt1 with its Adam
+    state, reads it back into a fresh model and resumes the optimizer."""
+    code = (
+        "import sys, warnings\n"
+        "for m in ('msgpack', 'flax', 'jax', 'jaxlib', 'optax', 'cellsegmentation_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "import torch\n"
+        "from cellsegmentation_tpu_torch.models import build_model\n"
+        "from cellsegmentation_tpu_torch.train import checkpoint as ck\n"
+        "from cellsegmentation_tpu_torch.train.schedules import make_schedule\n"
+        "from cellsegmentation_tpu_torch.train.state import create_train_state\n"
+        "from cellsegmentation_tpu_torch.train.trainers import _restore_optimizer\n"
+        "warnings.simplefilter('error')\n"
+        "m = build_model('resnet18', device='cpu')\n"
+        "st = create_train_state(m, 'image', make_schedule(None, 1e-3, 1, 1), device='cpu')\n"
+        "for p in m.parameters():\n"
+        "    p.grad = torch.ones_like(p) if p.requires_grad else None\n"
+        "st.apply_gradients()\n"
+        f"path = ck.save_jax_checkpoint({str(tmp_path)!r}, 'image', 1, 'resnet18', m, st.optimizer, 1)\n"
+        "pt1 = ck.load_checkpoint(path)\n"
+        "fresh = ck.restore_into(build_model('resnet18', device='cpu', seed=1), pt1)\n"
+        "st2 = create_train_state(fresh, 'image', make_schedule(None, 1e-3, 1, 1), device='cpu')\n"
+        "_restore_optimizer(st2, pt1['optimizer'])\n"
+        "sd, sd2 = m.state_dict(), fresh.state_dict()\n"
+        "assert all(torch.equal(sd[k], sd2[k]) for k in sd if not k.startswith(('fc_tile', 'seg')))\n"
+        "assert len(st2.optimizer.state) == len(st.optimizer.state) > 0\n"
+        "print('ok')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stdout + proc.stderr
 
 
 def test_import_check_sees_lazy_and_dotted_imports(tmp_path):
